@@ -1,0 +1,292 @@
+"""Closest-hit kernel (CUDA C++, ``csrc/closest_hit.cu``) with its packers,
+its plain PyTorch version and its wrapper.
+
+Port of the resident closest-hit kernel of
+``ray_tracer_tpu/ops/pallas_intersect.py`` (``_make_kernel`` through
+``nearest_hit_attrs_pallas`` / ``nearest_hit_pallas``). Same inputs and
+outputs: rays (R, 3) + liveness → t (R,) f32 (+inf on miss), prim id (R,)
+int32 (0 on miss) and, with ``want_attrs``, the winner's merged-table row
+(26, R) f32 (zero on miss), equal to ``_pack_attrs(scene)[id].T``.
+
+  * ``nearest_hit_attrs`` — the wrapper: launches the kernel for CUDA
+    tensors; the plain version runs only for tensors on the CPU. Anything
+    the kernel does not take raises. ``nearest_hit_attrs.launches`` counts
+    kernel launches.
+  * ``nearest_hit_attrs_reference`` — the plain version: brute force over
+    every sphere and triangle with the kernel's arithmetic and tie rule,
+    no culling, in ray chunks.
+
+The plane arrays share the reference's layouts: spheres (SP, 16)
+``[c(3) | r² | valid | albedo(3) | emission(3) | es | smooth | pad(3)]``,
+triangles (TP, 32) ``[a(3) | e1(3) | e2(3) | n(3) | n0 n1 n2 (9) |
+albedo(3) | emission(3) | es | smooth | pad(3)]``, cluster boxes (C, 8)
+``[lo(3) | hi(3) | pad(2)]`` over runs of 64 triangles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..scene import Scene, TENSOR_FIELDS
+from .intersect import _pack_attrs, cross, merged_width
+
+CLUSTER = 64           # triangles per culling cluster (the kernel's kCluster)
+TRI_DET_EPS = 1e-6
+# ray chunk of the plain version: keeps its (rays, primitives) temporaries
+# near 256 MB each on a 16k-triangle scene
+REFERENCE_CHUNK = 4096
+
+
+# ---------------------------------------------------------------------------
+# Packers (shared by the kernel and the plain version)
+# ---------------------------------------------------------------------------
+
+def _pack_tris(scene: Scene):
+    """(TP, 32) triangle planes. n = e1 × e2 is the unnormalized geometric
+    normal, computed with separately rounded products (no fused
+    multiply-add), as every other float operation here."""
+    a = scene.tri_v0
+    e1 = scene.tri_v1 - scene.tri_v0
+    e2 = scene.tri_v2 - scene.tri_v0
+    pad = torch.zeros_like(a)
+    return torch.cat([
+        a, e1, e2, cross(e1, e2),
+        scene.tri_n0, scene.tri_n1, scene.tri_n2,
+        scene.tri_albedo, scene.tri_emission,
+        scene.tri_emission_strength[:, None],
+        scene.tri_smoothness[:, None], pad,
+    ], dim=1).contiguous()
+
+
+def _pack_spheres(scene: Scene):
+    """(SP, 16) sphere planes."""
+    pad = torch.zeros_like(scene.sphere_center)
+    return torch.cat([
+        scene.sphere_center,
+        (scene.sphere_radius ** 2)[:, None],
+        scene.sphere_valid[:, None],
+        scene.sphere_albedo,
+        scene.sphere_emission,
+        scene.sphere_emission_strength[:, None],
+        scene.sphere_smoothness[:, None],
+        pad,
+    ], dim=1).contiguous()
+
+
+def _attr_copy_maps(textured: bool = False):
+    """(merged-table column, plane column) copy maps for the winner-row
+    extraction. The planes carry columns the merged table omits: the sphere
+    ``valid`` flag (plane column 4) and the triangle geometric normal
+    (plane columns 9:12)."""
+    if textured:
+        raise NotImplementedError("textured scenes on the cuda backend")
+    sph = list(zip(range(12), (0, 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12)))
+    tri = [(r, r) for r in range(9)] + [(r, r + 3) for r in range(9, 26)]
+    return sph, tri
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_map_tensor(device: torch.device) -> torch.Tensor:
+    """(2, 26) int32: plane column of each merged-table column, row 0 for
+    spheres, row 1 for triangles, -1 where the table holds zero."""
+    W = merged_width(False)
+    table = [[-1] * W, [-1] * W]
+    for k, pairs in enumerate(_attr_copy_maps(False)):
+        for row, col in pairs:
+            table[k][row] = col
+    return torch.tensor(table, dtype=torch.int32, device=device)
+
+
+def _cluster_aabbs(scene: Scene, csize: int = CLUSTER):
+    """(C, 8) bounds of each run of ``csize`` triangles. Invalid (padding)
+    triangles contribute ±inf, so an all-padding cluster's box passes every
+    slab test: the kernel stops at the real-cluster count instead."""
+    TP = scene.padded_tris
+    C = TP // csize
+    valid = (scene.tri_valid > 0.5)[:, None, None]
+    vs = torch.stack([scene.tri_v0, scene.tri_v1, scene.tri_v2], 1)
+    inf = float("inf")
+    lo = torch.where(valid, vs, inf).reshape(C, csize * 3, 3).amin(1)
+    hi = torch.where(valid, vs, -inf).reshape(C, csize * 3, 3).amax(1)
+    return torch.cat([lo, hi, lo.new_zeros((C, 2))], dim=1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Pair tests (the kernel's arithmetic, association for association)
+# ---------------------------------------------------------------------------
+
+def _sphere_pairs(c, r2, o, d, a_quad, t_min):
+    """Near-root sphere quadratic on broadcast (x, y, z) triples."""
+    ocx, ocy, ocz = o[0] - c[0], o[1] - c[1], o[2] - c[2]
+    b = 2.0 * ((ocx * d[0] + ocy * d[1]) + ocz * d[2])
+    cc = ((ocx * ocx + ocy * ocy) + ocz * ocz) - r2
+    disc = b * b - 4.0 * a_quad * cc
+    t = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * a_quad)
+    return t, (disc >= 0.0) & (t >= t_min)
+
+
+def _mt_pairs(a, e1, e2, n, o, d, t_min):
+    """Möller–Trumbore cross/determinant form on broadcast (x, y, z)
+    triples: det >= 1e-6, u >= 0, v >= 0, u + v <= 1, t >= t_min."""
+    aox, aoy, aoz = o[0] - a[0], o[1] - a[1], o[2] - a[2]
+    det = -((d[0] * n[0] + d[1] * n[1]) + d[2] * n[2])
+    t_num = (aox * n[0] + aoy * n[1]) + aoz * n[2]
+    daox = aoy * d[2] - aoz * d[1]                      # ao × d
+    daoy = aoz * d[0] - aox * d[2]
+    daoz = aox * d[1] - aoy * d[0]
+    u_num = (e2[0] * daox + e2[1] * daoy) + e2[2] * daoz
+    v_num = -((e1[0] * daox + e1[1] * daoy) + e1[2] * daoz)
+    inv = 1.0 / det
+    t = t_num * inv
+    u = u_num * inv
+    v = v_num * inv
+    valid = ((det >= TRI_DET_EPS) & (t >= t_min)
+             & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0))
+    return t, valid
+
+
+def _cols(planes, lo, hi):
+    """Plane columns lo..hi-1 as a tuple of (1, P) rows."""
+    return tuple(planes[None, :, k] for k in range(lo, hi))
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def nearest_hit_attrs_reference(scene: Scene, o, d, t_min=1e-4, alive=None,
+                                want_attrs=True, chunk=REFERENCE_CHUNK):
+    """Closest hit by brute force → (t, prim_id, rows) or (t, prim_id).
+
+    The kernel's pair arithmetic and tie rule (lowest id wins), without
+    its culling: rays in chunks of ``chunk``, every primitive each."""
+    R = o.shape[0]
+    o, d = o.detach(), d.detach()
+    if alive is None:
+        alive = torch.ones((R,), dtype=torch.bool, device=o.device)
+    sph, tri = _pack_spheres(scene), _pack_tris(scene)
+    sc, (r2,), sv = _cols(sph, 0, 3), _cols(sph, 3, 4), sph[None, :, 4]
+    ta, te1, te2, tn = (_cols(tri, 0, 3), _cols(tri, 3, 6), _cols(tri, 6, 9),
+                        _cols(tri, 9, 12))
+    ts, ids = [], []
+    for s in range(0, R, chunk):
+        oc = tuple(o[s:s + chunk, k:k + 1] for k in range(3))   # (r, 1)
+        dc = tuple(d[s:s + chunk, k:k + 1] for k in range(3))
+        live = alive[s:s + chunk, None]
+        a_quad = (dc[0] * dc[0] + dc[1] * dc[1]) + dc[2] * dc[2]
+        t_s, ok_s = _sphere_pairs(sc, r2, oc, dc, a_quad, t_min)
+        t_s = torch.where(ok_s & (sv > 0.5) & live, t_s, float("inf"))
+        t_t, ok_t = _mt_pairs(ta, te1, te2, tn, oc, dc, t_min)
+        t_t = torch.where(ok_t & live, t_t, float("inf"))
+        all_t = torch.cat([t_s, t_t], dim=1)
+        del t_s, t_t, ok_s, ok_t
+        idx = torch.argmin(all_t, dim=1)                 # first = lowest id
+        best = torch.gather(all_t, 1, idx[:, None])[:, 0]
+        ts.append(best)
+        ids.append(torch.where(torch.isinf(best), 0, idx).to(torch.int32))
+    best_t = torch.cat(ts) if ts else o.new_zeros((0,))
+    prim_id = (torch.cat(ids) if ids
+               else torch.zeros((0,), dtype=torch.int32, device=o.device))
+    if not want_attrs:
+        return best_t, prim_id
+    rows = _pack_attrs(scene)[prim_id.long()]
+    rows = torch.where(torch.isinf(best_t)[:, None], 0.0, rows)
+    return best_t, prim_id, rows.T.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernel library (built at first use), with its C signatures."""
+    from ..utils import build
+    lib = build.load("closest_hit")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rtt_closest_hit.argtypes = [p, i, p, i, i, p, p, i, p,
+                                    ctypes.c_float, i, p, p, p, p]
+    lib.rtt_closest_hit.restype = i
+    lib.rtt_error_string.argtypes = [i]
+    lib.rtt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(scene: Scene, o, d, alive):
+    dev = o.device
+    for name, x in (("o", o), ("d", d)):
+        if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be (R, 3) float32, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, o on {dev}")
+    if d.shape[0] != o.shape[0]:
+        raise ValueError("o and d must hold the same number of rays")
+    if alive is not None and (alive.shape != (o.shape[0],)
+                              or alive.dtype != torch.bool
+                              or alive.device != dev):
+        raise ValueError("alive must be an (R,) bool tensor beside the rays")
+    if scene.device != dev:
+        raise ValueError(f"scene is on {scene.device}, rays on {dev}")
+    if scene.num_textures:
+        raise NotImplementedError("textured scenes on the cuda backend")
+    if any(getattr(scene, k).requires_grad for k in TENSOR_FIELDS):
+        raise NotImplementedError(
+            "gradients through the closest-hit kernel (its scatter-add "
+            "backward is not ported yet)")
+    if scene.padded_tris % CLUSTER:
+        raise ValueError(f"padded triangle count {scene.padded_tris} is not "
+                         f"a multiple of the {CLUSTER}-triangle cluster")
+    if max(o.shape[0], scene.padded_tris) * merged_width(False) >= 2 ** 31:
+        raise ValueError("too many rays or triangles for 32-bit indexing")
+
+
+def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
+                      want_attrs=True):
+    """Closest hit of each ray → (t (R,), prim_id (R,) int32, rows (26, R))
+    with ``want_attrs``, else (t, prim_id).
+
+    CUDA tensors launch the kernel (built at first use); CPU tensors take
+    the plain version; any other device, or input the kernel does not
+    take, raises. Nothing falls back silently."""
+    if o.device.type == "cpu":
+        return nearest_hit_attrs_reference(scene, o, d, t_min, alive,
+                                           want_attrs)
+    if o.device.type != "cuda":
+        raise ValueError(f"no closest-hit kernel for device {o.device}")
+    _check_inputs(scene, o, d, alive)
+    R, dev = o.shape[0], o.device
+    t_out = torch.empty((R,), dtype=torch.float32, device=dev)
+    id_out = torch.empty((R,), dtype=torch.int32, device=dev)
+    rows = (torch.empty((merged_width(False), R), dtype=torch.float32,
+                        device=dev) if want_attrs else None)
+    if R == 0:
+        return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
+    lib = _library()
+    rays = torch.empty((7, R), dtype=torch.float32, device=dev)
+    rays[0:3] = o.detach().T
+    rays[3:6] = d.detach().T
+    rays[6] = 1.0 if alive is None else alive.to(torch.float32)
+    sph, tri = _pack_spheres(scene), _pack_tris(scene)
+    clu = _cluster_aabbs(scene)
+    cmap = _copy_map_tensor(dev)
+    n_clusters = -(-scene.num_tris // CLUSTER)
+    with torch.cuda.device(dev):
+        err = lib.rtt_closest_hit(
+            rays.data_ptr(), R, sph.data_ptr(), scene.padded_spheres,
+            int(scene.num_spheres > 0), tri.data_ptr(), clu.data_ptr(),
+            n_clusters, cmap.data_ptr(), float(t_min), int(want_attrs),
+            t_out.data_ptr(), id_out.data_ptr(),
+            rows.data_ptr() if want_attrs else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("closest-hit kernel launch failed: "
+                           + lib.rtt_error_string(err).decode())
+    nearest_hit_attrs.launches += 1
+    return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
+
+
+nearest_hit_attrs.launches = 0

@@ -22,3 +22,8 @@ import jax  # noqa: E402
 if _platform == "cpu":
     jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")

@@ -1,0 +1,143 @@
+"""Shared inputs for the port's parity tests (tests/test_torch_*.py).
+
+Both packages build the same scenes from the same numpy inputs; the port
+takes the reference's scene leaves through ``scene_from_numpy`` where a
+test needs both to compute on identical data.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+import ray_tracer_tpu as jrt
+import ray_tracer_tpu_torch as trt
+
+
+def heightfield(n, extent, y0, rng):
+    """(n-1)^2 * 2 smooth terrain triangles over [-extent, extent]^2
+    (the procedural mesh of tools/bench_blocked.py)."""
+    xs = np.linspace(-extent, extent, n)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    h = np.zeros_like(gx)
+    for _ in range(6):  # a few random cosine waves
+        kx, kz = rng.normal(size=2) * (2.5 / extent)
+        h += rng.random() * np.cos(kx * gx + kz * gz + rng.random() * 6.28)
+    h = y0 + h * (extent * 0.02)
+    verts = np.stack([gx, h, gz], -1).reshape(-1, 3)
+    dhdx = np.gradient(h, xs, axis=0)
+    dhdz = np.gradient(h, xs, axis=1)
+    nrm = np.stack([-dhdx, np.ones_like(h), -dhdz], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    normals = nrm.reshape(-1, 3)
+    i = np.arange(n * n).reshape(n, n)
+    a, b, c, d = (i[:-1, :-1].ravel(), i[1:, :-1].ravel(),
+                  i[:-1, 1:].ravel(), i[1:, 1:].ravel())
+    idx = np.concatenate([np.stack([a, b, c], -1),
+                          np.stack([b, d, c], -1)]).reshape(-1)
+    return verts, normals, idx
+
+
+def terrain(pkg, n=12, aspect=1.0):
+    """Terrain scene in package ``pkg`` (either package): a heightfield of
+    2 (n-1)^2 triangles with glass, diffuse and glossy spheres resting on
+    it. Returns (scene, camera)."""
+    verts, normals, idx = heightfield(n, 4.0, -1.0, np.random.default_rng(0))
+    # heightfield's winding faces -y and the intersection culls back faces:
+    # reverse it so the terrain faces the camera above it
+    idx = idx.reshape(-1, 3)[:, ::-1].reshape(-1)
+    b = pkg.SceneBuilder()
+    b.add_mesh(verts, normals, idx, albedo=(0.7, 0.5, 0.3), smoothness=0.3)
+    for x, albedo, smooth in ((-1.2, (0.8, 0.8, 0.8), -1.0),
+                              (0.0, (0.7, 0.3, 0.3), 0.0),
+                              (1.2, (0.8, 0.6, 0.2), 0.15)):
+        # rest on the highest terrain vertex within reach of the sphere
+        near = np.hypot(verts[:, 0] - x, verts[:, 2]) <= 0.5 + 8.0 / (n - 1)
+        y = float(verts[near, 1].max()) + 0.5
+        b.add_sphere((x, y, 0.0), 0.5, albedo, (0.0, 0.0, 0.0), 0.0, smooth)
+    cam = pkg.Camera(origin=(0.0, 1.5, 6.0), look_at=(0.0, -0.8, 0.0),
+                     fov=45.0, aspect=aspect)
+    return b.build(), cam
+
+
+def mesh80(pkg):
+    """80 random triangles with random materials (as tests/test_fused.py)."""
+    rng = np.random.default_rng(5)
+    b = pkg.SceneBuilder()
+    for t in rng.normal(size=(80, 3, 3)) * 4:
+        b.add_mesh(t, rng.normal(size=(3, 3)), [0, 1, 2],
+                   albedo=tuple(rng.random(3)),
+                   emission=tuple(rng.random(3)),
+                   emission_strength=float(rng.random()),
+                   smoothness=float(rng.random()))
+    cam = pkg.Camera(origin=(0.0, 0.0, 12.0), look_at=(0.0, 0.0, 0.0))
+    return b.build(), cam
+
+
+def scene_pair(name, aspect=1.0):
+    """(jax scene, port scene, jax camera) for a scene name; the port's
+    scene is the reference's, carried across as numpy."""
+    if name == "terrain":
+        js, cam = terrain(jrt, aspect=aspect)
+    elif name == "mesh80":
+        js, cam = mesh80(jrt)
+    else:
+        js, cam = jrt.builtin_scene(name, aspect=aspect)
+    return js, to_port(js), cam
+
+
+def to_port(jax_scene):
+    return trt.scene_from_numpy(
+        {k: np.asarray(v) for k, v in dataclasses.asdict(jax_scene).items()})
+
+
+def probe_rays(cam, n, seed):
+    """n rays: half through random points of the camera's image plane,
+    half with random origins and directions. float32 numpy (o, d)."""
+    rng = np.random.default_rng(seed)
+    basis = jrt.camera_basis(cam)
+    k = n // 2
+    px, py = rng.random((2, k)).astype(np.float32)
+    d_cam = (basis.lower_left + px[:, None] * basis.horizontal
+             + py[:, None] * basis.vertical - basis.origin)
+    o_cam = np.broadcast_to(basis.origin, d_cam.shape)
+    o_rnd = rng.normal(size=(n - k, 3)) * 5
+    d_rnd = rng.normal(size=(n - k, 3))
+    o = np.concatenate([o_cam, o_rnd]).astype(np.float32)
+    d = np.concatenate([d_cam, d_rnd]).astype(np.float32)
+    return o, d
+
+
+def frac_off(a, b, tol=2e-2):
+    """Fraction of pixels whose largest channel difference exceeds tol
+    (the reference's image parity gate, bench.py section_parity)."""
+    return float((np.abs(np.asarray(a) - np.asarray(b)).max(-1) > tol).mean())
+
+
+def t_(x):
+    """numpy (or jax) array → CPU tensor over a writable copy."""
+    return torch.from_numpy(np.array(x))
+
+
+def test_terrain_faces_the_camera_and_has_bench_size():
+    """The terrain's triangles face +y (towards the camera above it), its
+    spheres rest on it, and at n=90 it has the 15,842 triangles of the
+    chip smoke run's terrain."""
+    verts, _, idx = heightfield(90, 4.0, -1.0, np.random.default_rng(0))
+    assert idx.size // 3 == 15_842
+    scene, cam = terrain(trt)
+    e1 = scene.tri_v1 - scene.tri_v0
+    e2 = scene.tri_v2 - scene.tri_v0
+    ny = (e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2])[:scene.num_tris]
+    assert bool((ny > 0).all())
+    top = scene.tri_v0[:scene.num_tris, 1].max()
+    assert bool((scene.sphere_center[:3, 1] - 0.5 >= scene.tri_v0[
+        :scene.num_tris, 1].min()).all()) and float(top) < 0.0
+
+
+def test_probe_rays_are_half_camera_half_random():
+    _, cam = terrain(jrt)
+    o, d = probe_rays(cam, 10, seed=0)
+    assert o.shape == d.shape == (10, 3) and o.dtype == np.float32
+    np.testing.assert_array_equal(o[:5], np.broadcast_to(
+        np.asarray(cam.origin, np.float32), (5, 3)))
