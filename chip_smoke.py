@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's forward render path (``ray_tracer_tpu_torch``) once,
-through the entry points a user calls, and checks it. It imports nothing
-of JAX. Phases, each printing one line:
+Drives the port's two paths (``ray_tracer_tpu_torch``) once each,
+through the entry points a user calls, and checks them: the forward render
+path (phase 3) and the training path (phase 5). It imports nothing of JAX.
+Phases, each printing one line (phase 1 one per kernel):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. builds the closest-hit kernel from the repository's sources;
+  1. builds both kernels from the repository's sources, one nvcc each,
+     started together, and prints ptxas's registers and spills;
   2. kernel vs its plain PyTorch version on the card, 65,536 rays on each
      of room, metal, random_balls and terrain (camera + random rays, about
      half of them dead), both want_attrs variants: at most 2 id mismatches
@@ -19,38 +21,69 @@ of JAX. Phases, each printing one line:
      "auto" (which resolves to the kernel); the kernel's launch count must
      rise by exactly frames x (bounces + 1), the image must be finite and
      not constant; segments/s timed with CUDA events after a warm-up frame
-     (median and best of 5 renders);
+     (median and best of 5 renders); the scatter-add kernel must not
+     launch on this forward path;
+  2b. (run before 3) the scatter-add kernel vs its plain version
+     (``index_add_``) on the card, on the 1080p terrain primary
+     wavefront's winner ids in the blocked pixel order (misses routed to
+     the dropped id) with seeded random cotangents (26, R): all lanes,
+     about 5% of lanes live, no lane live, and the row-major (R, 26) form;
+     each entry within 1e-5 of the plain value plus 1e-6 of the sum of
+     |g| over the lanes it adds up; kernel and plain ms at 1080p, and
+     whether two kernel runs were bit-equal;
   4. path parity: one 256x144 frame through the kernel and through the
      plain oracle (backend "torch") on the same CUDA tensors; the fraction
-     of pixels off by more than 2e-2 must be below 2e-3.
+     of pixels off by more than 2e-2 must be below 2e-3;
+  5. the training path: ``grad.make_train_step`` over
+     ``DEFAULT_TRAINABLE`` (Adam, 1e-2 on the albedos and 1e-4 on the
+     geometry: ``train_optimizer``) at the main path's settings (terrain
+     1920x1080, bounces=3), from the scene with its albedos scaled by 0.8
+     towards the same frame of the true scene; one warm-up step and 5
+     timed steps. Each step
+     must launch the closest-hit and the scatter-add kernel bounces + 1
+     times each, every gradient must be finite, tri_v0's and tri_albedo's
+     not all zero, and the last loss below the first. Prints s/step
+     (median and spread, CUDA events), forward+backward segments/s, peak
+     device memory, and the host's enqueue time against the device time;
+  6. gradient parity: a whole-frame MSE gradient over every float scene
+     leaf of a 256x144 terrain frame through the kernels (backend "cuda")
+     and through the plain oracle (backend "torch") on the same CUDA
+     tensors; the images must be equal, and per leaf max |diff| <= 1e-4 x
+     that leaf's max |g|.
 
 Then it prints the kernels' JSON line and, last, one JSON line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. ``--profile`` adds measurements: where one main-path
 frame's time goes (torch.profiler), for terrain and for the room scene at
-the same settings. ``--out DIR`` writes a 4x-downsampled main-path image
-(``chip_smoke_terrain.npy``) and, with ``--profile``, the profiler tables
-(``chip_smoke_profile_<scene>.txt``) into DIR; without it nothing is
-written.
+the same settings, and where one training step's time goes. ``--out DIR``
+writes a 4x-downsampled main-path image (``chip_smoke_terrain.npy``) and,
+with ``--profile``, the profiler tables (``chip_smoke_profile_<name>.txt``)
+into DIR; without it nothing is written.
 
 Usage: python3 chip_smoke.py [--profile] [--out DIR]
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import ray_tracer_tpu_torch as rt
 from ray_tracer_tpu_torch import sampling
+from ray_tracer_tpu_torch.grad import DEFAULT_TRAINABLE, make_train_step
 from ray_tracer_tpu_torch.ops import closest_hit as ch
-from ray_tracer_tpu_torch.renderer import (render_frame, render_progressive,
+from ray_tracer_tpu_torch.ops import scatter_rows as sc
+from ray_tracer_tpu_torch.renderer import (_blocked_ids, render_frame,
+                                           render_progressive,
                                            resolved_backend)
+from ray_tracer_tpu_torch.scene import TENSOR_FIELDS
 from ray_tracer_tpu_torch.utils import build
 
 W, H, FRAMES, BOUNCES = 1920, 1080, 8, 3
@@ -61,8 +94,23 @@ PARAMS = dict(width=W, height=H, bounces=BOUNCES, rays_per_pixel=1,
 PROBE_RAYS = 65_536
 MAX_ID_MISMATCHES = 2
 PARITY_TOL, PARITY_GATE = 2e-2, 2e-3
-KERNEL_SOURCE = "ray_tracer_tpu_torch/csrc/closest_hit.cu"
-REPLACES = "ray_tracer_tpu/ops/pallas_intersect.py:531"
+TRAIN_STEPS = 5        # timed training steps after one warm-up step
+ALBEDO_START = 0.8     # the training start scales both albedos by this
+ALBEDO_LR, GEOMETRY_LR = 1e-2, 1e-4   # Adam rates of the training phase
+ALBEDOS = ("sphere_albedo", "tri_albedo")
+# scatter gate: |kernel - plain| <= RTOL |plain| + ATOL sum|g| per entry,
+# the sum of |g| over the lanes the entry adds up: two f32 sums of the same
+# n values in different orders differ by up to ~n u sum|g| (u = 6e-8), and
+# on the 1080p terrain a sphere's entries sum ~1e5 lanes
+SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-6
+GRAD_PARITY = 1e-4     # per leaf, x that leaf's max |g|
+# kernel name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "closest_hit": ("ray_tracer_tpu_torch/csrc/closest_hit.cu",
+                    "ray_tracer_tpu/ops/pallas_intersect.py:531"),
+    "scatter_rows": ("ray_tracer_tpu_torch/csrc/scatter_rows.cu",
+                     "ray_tracer_tpu/ops/pallas_intersect.py:1784"),
+}
 
 
 def heightfield(n, extent, y0, rng):
@@ -141,15 +189,18 @@ def phase0_device():
 
 def phase1_build():
     t0 = time.perf_counter()
-    path = build.build("closest_hit")
-    build.load("closest_hit")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    for name in KERNELS:
+        build.load(name)
     secs = time.perf_counter() - t0
-    log = path.with_suffix(".log").read_text() if path.with_suffix(
-        ".log").exists() else ""
-    ptxas = " / ".join(ln.split("ptxas info    : ")[-1] for ln in
-                       log.splitlines() if "Used" in ln or "spill" in ln)
-    print(f"phase 1 build: {path.name} in {secs:.2f} s | {ptxas}",
-          flush=True)
+    for name, path in paths.items():
+        log = path.with_suffix(".log").read_text() if path.with_suffix(
+            ".log").exists() else ""
+        ptxas = " / ".join(ln.split("ptxas info    : ")[-1] for ln in
+                           log.splitlines() if "Used" in ln or "spill" in ln)
+        print(f"phase 1 build: {path.name} ({len(paths)} built together in "
+              f"{secs:.2f} s) | {ptxas}", flush=True)
 
 
 def probe_inputs(scene, cam, n, seed, device):
@@ -269,11 +320,15 @@ def phase3_main_path(device, terrain, card, profile, out_dir):
     render_frame(scene, basis, params, 0)            # warm-up frame
     torch.cuda.synchronize()
     ch.nearest_hit_attrs.launches = 0
+    sc.scatter_rows_soa.launches = 0
     img, secs, enqueue_s = timed_render(scene, basis, params, FRAMES)
     launches = ch.nearest_hit_attrs.launches
     want = FRAMES * (BOUNCES + 1)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    if sc.scatter_rows_soa.launches:
+        raise AssertionError("the forward path launched the scatter-add "
+                             "kernel")
     if img.shape != (H, W, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError("main-path image is not finite (H, W, 3)")
     if float(img.std()) < 1e-3:
@@ -348,6 +403,214 @@ def phase4_parity(device, terrain):
           f"{float((a - b).abs().max())}", flush=True)
 
 
+def primary_wavefront(scene, cam, device):
+    """The main path's 1080p primary rays, in render_frame's blocked pixel
+    order (the order the backward's scatter sees)."""
+    basis = rt.camera_basis(cam).to(device)
+    ids, _ = _blocked_ids(W, H, device)
+    _, o, d = rt.camera_rays(basis, ids % W, ids // W, (W, H),
+                             sampling.seed_state(ids, 0))
+    return o, d
+
+
+def phase2b_scatter_vs_plain(device, terrain):
+    scene, cam = terrain
+    o, d = primary_wavefront(scene, cam, device)
+    t, pid = ch.nearest_hit_attrs(scene, o, d, 1e-4, want_attrs=False)
+    n_rows = scene.padded_spheres + scene.padded_tris
+    R = W * H
+    ids = torch.where(torch.isinf(t), n_rows, pid)
+    gen = torch.Generator(device=device).manual_seed(0)
+    g = torch.randn((26, R), generator=gen, device=device)
+    sparse = torch.where(torch.rand(R, generator=gen, device=device) < 0.05,
+                         ids, n_rows)
+    all_miss = torch.full_like(ids, n_rows)
+    cases = {"dense": (sc.scatter_rows_soa, ids, g),
+             "sparse": (sc.scatter_rows_soa, sparse, g),
+             "all-miss": (sc.scatter_rows_soa, all_miss, g),
+             "row-major": (sc.scatter_rows, ids, g.T.contiguous())}
+    report, max_err = [], 0.0
+    for label, (fn, case_ids, case_g) in cases.items():
+        got = fn(case_ids, case_g, n_rows)
+        want = sc.scatter_rows_soa_reference(case_ids, g, n_rows)
+        mass = sc.scatter_rows_soa_reference(case_ids, g.abs(), n_rows)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        if bool((diff > SCATTER_RTOL * want.abs()
+                 + SCATTER_ATOL * mass).any()):
+            raise AssertionError(f"scatter {label}: max |diff| {err} "
+                                 f"(max |plain| {float(want.abs().max())})")
+        max_err = max(max_err, err)
+        live = int((case_ids < n_rows).sum())
+        rel = float((diff / mass.clamp(min=1e-30)).max())
+        report.append(f"{label} {live} live lanes max |diff| {err} (max "
+                      f"|diff| / sum|g| {rel:.3g})")
+    again = [sc.scatter_rows_soa(ids, g, n_rows) for _ in range(2)]
+    bit_equal = torch.equal(again[0], again[1])
+    del again
+    ms = cuda_ms(lambda: sc.scatter_rows_soa(ids, g, n_rows), 20)
+    plain_ms = cuda_ms(lambda: sc.scatter_rows_soa_reference(ids, g, n_rows),
+                       5)
+    print(f"phase 2b scatter-add vs plain (terrain {W}x{H} primary winners, "
+          f"{n_rows} rows x 26): " + "; ".join(report)
+          + f" | dense 1080p: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"two kernel runs bit-equal: {bit_equal}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err)
+
+
+def phase5_training(device, terrain, card, profile, out_dir):
+    scene, cam = terrain
+    params = rt.RenderParams(**PARAMS)
+    basis = rt.camera_basis(cam)
+    with torch.no_grad():  # the same frame, so the same sample streams
+        target = render_frame(scene, basis, params, 0)
+    start = dataclasses.replace(
+        scene, tri_albedo=scene.tri_albedo * ALBEDO_START,
+        sphere_albedo=scene.sphere_albedo * ALBEDO_START)
+    init_fn, step_fn = make_train_step(params, train_optimizer)
+    trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
+    per_step = BOUNCES + 1
+    losses, device_s, host_s = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ch.nearest_hit_attrs.launches = 0
+    sc.scatter_rows_soa.launches = 0
+    for step in range(1 + TRAIN_STEPS):             # step 0 warms up
+        before = (ch.nearest_hit_attrs.launches, sc.scatter_rows_soa.launches)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        trainable, opt, loss = step_fn(trainable, opt, start, basis, target,
+                                       0)
+        ev1.record()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        b1 = ch.nearest_hit_attrs.launches - before[0]
+        b2 = sc.scatter_rows_soa.launches - before[1]
+        if (b1, b2) != (per_step, per_step):
+            raise AssertionError(f"step {step}: {b1} closest-hit and {b2} "
+                                 f"scatter-add launches, want {per_step}")
+        losses.append(float(loss))
+        if step:
+            device_s.append(ev0.elapsed_time(ev1) / 1e3)
+            host_s.append(enqueue)
+    launches = (ch.nearest_hit_attrs.launches, sc.scatter_rows_soa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for k, p in trainable.items():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"gradient of {k} is missing or not finite")
+    for k in ("tri_v0", "tri_albedo"):
+        if not bool(trainable[k].grad.any()):
+            raise AssertionError(f"gradient of {k} is all zero")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    med = float(np.median(device_s))
+    segs = W * H * 1 * (BOUNCES + 1)
+    print(f"phase 5 training path: terrain {W}x{H} b{BOUNCES} Adam "
+          f"({ALBEDO_LR} albedos, {GEOMETRY_LR} geometry) over "
+          f"{len(trainable)} leaves, whole-frame gradient: {med:.4f} s/step median "
+          f"({len(device_s)} steps {[round(x, 4) for x in device_s]} s, "
+          f"spread {(max(device_s) - min(device_s)) / min(device_s):.2%}), "
+          f"{segs / med / 1e6:.3f} M segments/s forward+backward; peak "
+          f"memory {peak / 2 ** 30:.3f} GiB; host enqueue "
+          f"{float(np.median(host_s)):.4f} s vs device {med:.4f} s per step; "
+          f"{launches[0]} closest-hit + {launches[1]} scatter-add launches "
+          f"({per_step} + {per_step} per step); loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g} | {card}", flush=True)
+    if profile:
+        profile_step(step_fn, trainable, opt, start, basis, target, med,
+                     out_dir)
+    return launches[1]
+
+
+def train_optimizer(leaves):
+    """Adam over DEFAULT_TRAINABLE's leaves (in that order): the default
+    rate 1e-2 on the albedos, 1e-4 on the geometry. The target is the true
+    scene, so its geometry is already right, and the interior gradient does
+    not see the silhouettes a move shifts. On an H100 at this phase's
+    settings, Adam 1e-2 on every leaf raised the loss from 7.76e-4 to
+    2.00e-3 in one step; 1e-3 on the geometry lowered it for four steps
+    and then raised it again."""
+    names = dict(zip(DEFAULT_TRAINABLE, leaves))
+    return torch.optim.Adam([
+        {"params": [names[k] for k in ALBEDOS], "lr": ALBEDO_LR},
+        {"params": [v for k, v in names.items() if k not in ALBEDOS],
+         "lr": GEOMETRY_LR}])
+
+
+def profile_step(step_fn, trainable, opt, scene, basis, target, step_s,
+                 out_dir):
+    """Where one training step's time goes (measurement only): its device
+    kernels under torch.profiler against the step's median device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        step_fn(trainable, opt, scene, basis, target, 0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+
+    def us(key):
+        return [e.time_range.elapsed_us() for e in kernels if key in e.name]
+
+    hit_us, scatter_us = us("closest_hit"), us("scatter_rows")
+    if out_dir:
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=40)
+        with open(os.path.join(out_dir, "chip_smoke_profile_train.txt"),
+                  "w") as f:
+            f.write(table)
+    print(f"profile: training step {len(kernels)} device kernels busy "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / 1e6 / step_s:.1%} of the "
+          f"median step's {step_s * 1e3:.3f} ms); closest_hit {hit_us} us, "
+          f"scatter_rows {scatter_us} us "
+          f"({(sum(hit_us) + sum(scatter_us)) / max(busy_us, 1):.1%} of "
+          f"device time)", flush=True)
+
+
+def phase6_grad_parity(device, terrain):
+    scene, cam = terrain
+    basis = rt.camera_basis(cam.replace(aspect=256 / 144))
+    params = rt.RenderParams(**dict(PARAMS, width=256, height=144))
+    fields = [k for k in TENSOR_FIELDS
+              if getattr(scene, k).is_floating_point()]
+    with torch.no_grad():
+        target = 0.5 * render_frame(scene, basis, params, 1)
+    out = {}
+    for backend in ("cuda", "torch"):
+        leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+                  for k in fields}
+        img = render_frame(dataclasses.replace(scene, **leaves), basis,
+                           params.replace(backend=backend), 0)
+        loss = torch.mean((img - target) ** 2)
+        g = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+        out[backend] = (img.detach(), {
+            k: torch.zeros_like(leaves[k]) if gk is None else gk
+            for k, gk in zip(fields, g)})
+    (img_k, g_k), (img_p, g_p) = out["cuda"], out["torch"]
+    if not torch.equal(img_k, img_p):
+        raise AssertionError("gradient parity: the two images differ by "
+                             f"{float((img_k - img_p).abs().max())}")
+    worst, worst_leaf, nonzero = 0.0, None, 0
+    for k in fields:
+        scale = float(g_p[k].abs().max())
+        err = float((g_k[k] - g_p[k]).abs().max())
+        if err > GRAD_PARITY * scale:
+            raise AssertionError(f"gradient parity: {k} differs by {err} "
+                                 f"(max |g| {scale})")
+        nonzero += scale > 0
+        if scale and err / scale >= worst:
+            worst, worst_leaf = err / scale, k
+    print(f"phase 6 gradient parity (terrain 256x144 b{BOUNCES}, cuda vs "
+          f"torch, {len(fields)} float leaves, {nonzero} with a gradient): "
+          f"images equal; largest max |diff| / max |g| {worst:.3g} "
+          f"({worst_leaf}; gate {GRAD_PARITY})", flush=True)
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -361,15 +624,21 @@ def main(argv):
     device = torch.device("cuda", 0)
     phase1_build()
     terrain = terrain_scene(device)
-    timing = phase2_kernel_vs_plain(device, terrain)
-    launches = phase3_main_path(device, terrain, card, args.profile,
-                                args.out)
+    timing = {"closest_hit": phase2_kernel_vs_plain(device, terrain),
+              "scatter_rows": phase2b_scatter_vs_plain(device, terrain)}
+    launches = {"closest_hit": phase3_main_path(device, terrain, card,
+                                                args.profile, args.out)}
     phase4_parity(device, terrain)
+    launches["scatter_rows"] = phase5_training(
+        device, terrain, card, args.profile, args.out)
+    torch.cuda.empty_cache()
+    phase6_grad_parity(device, terrain)
     print(json.dumps({"kernels": [{
-        "name": "closest_hit", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"]}]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": timing[name]["max_abs_err"],
+        "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
+        for name, (source, replaces) in KERNELS.items()]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,8 @@ import functools
 
 import torch
 
+from .utils.bounds import clip, maximum
+
 SKY_HORIZON = (1.0, 1.0, 1.0)
 SKY_ZENITH = (0.0788092, 0.36480793, 0.7264151)
 GROUND_COLOR = (0.35, 0.3, 0.35)
@@ -22,7 +24,7 @@ SUN_DIR = (0.1, 1.0, 0.1)  # unnormalized, as in the reference
 
 
 def smoothstep(edge0, edge1, x):
-    t = torch.clamp((x - edge0) / (edge1 - edge0), 0.0, 1.0)
+    t = clip((x - edge0) / (edge1 - edge0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
 
 
@@ -45,7 +47,7 @@ def environment_light(dirs: torch.Tensor) -> torch.Tensor:
     sky = horizon * (1.0 - sky_t) + zenith * sky_t
     sun_cos = ((dirs[:, 0] * SUN_DIR[0] + dirs[:, 1] * SUN_DIR[1])
                + dirs[:, 2] * SUN_DIR[2])
-    sun = torch.pow(torch.clamp(sun_cos, min=0.0), SUN_FOCUS) * SUN_INTENSITY
+    sun = torch.pow(maximum(sun_cos, 0.0), SUN_FOCUS) * SUN_INTENSITY
     return (ground * (1.0 - ground_to_sky)
             + sky * ground_to_sky
             + sun[:, None] * (ground_to_sky >= 1.0).to(torch.float32))

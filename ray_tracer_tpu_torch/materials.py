@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import sampling
+from .utils.bounds import clip, maximum, minimum
 
 IOR_GLASS = 1.5
 
@@ -26,7 +27,7 @@ def _dot(a, b):
 
 
 def _unit(v):
-    return v / torch.clamp(torch.sqrt(_dot(v, v)), min=1e-12)
+    return v / maximum(torch.sqrt(_dot(v, v)), 1e-12)
 
 
 def reflect(d, n):
@@ -36,11 +37,10 @@ def reflect(d, n):
 
 def refract(unit_d, n, refraction_ratio):
     """Snell refraction (squared perpendicular length)."""
-    cos_theta = torch.clamp(_dot(-unit_d, n), max=1.0)
+    cos_theta = minimum(_dot(-unit_d, n), 1.0)
     r_perp = refraction_ratio * (unit_d + cos_theta * n)
     r_perp_len2 = _dot(r_perp, r_perp)
-    r_par = -torch.sqrt(torch.clamp(torch.abs(1.0 - r_perp_len2),
-                                    min=1e-12)) * n
+    r_par = -torch.sqrt(maximum(torch.abs(1.0 - r_perp_len2), 1e-12)) * n
     return r_perp + r_par
 
 
@@ -85,21 +85,21 @@ def scatter(state, d, normal, smoothness, cosine_sampling: bool = False,
         v = normal + sph
         n2 = _dot(v, v)
         diffuse_dir = torch.where(
-            n2 > 1e-12, v / torch.sqrt(torch.clamp(n2, min=1e-12)), normal)
+            n2 > 1e-12, v / torch.sqrt(maximum(n2, 1e-12)), normal)
     elif sharing:
         sflip = _dot(sph, normal)
         diffuse_dir = sph * torch.where(sflip >= 0.0, 1.0, -1.0)
     else:
         state, diffuse_dir = sampling.hemisphere(state, normal)
     specular_dir = reflect(unit_d, normal)
-    s = torch.clamp(smoothness, 0.0, 1.0)[:, None]
+    s = clip(smoothness, 0.0, 1.0)[:, None]
     glossy_dir = diffuse_dir * (1.0 - s) + specular_dir * s
 
     # --- dielectric ------------------------------------------------------
     front_face = _dot(d, normal)[:, 0] <= 0.0
     ratio = torch.where(front_face, 1.0 / IOR_GLASS, IOR_GLASS)
-    cos_theta = torch.clamp(_dot(-unit_d, normal)[:, 0], max=1.0)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    cos_theta = minimum(_dot(-unit_d, normal)[:, 0], 1.0)
+    sin_theta = torch.sqrt(maximum(1.0 - cos_theta * cos_theta, 0.0))
     cannot_refract = ratio * sin_theta > 1.0
     state, u = sampling.uniform(state)
     use_reflect = cannot_refract | (schlick_reflectance(cos_theta, ratio) > u)

@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from ..scene import Scene, TENSOR_FIELDS
+from ..scene import Scene
 from .intersect import _pack_attrs, cross, merged_width
 
 CLUSTER = 64           # triangles per culling cluster (the kernel's kCluster)
@@ -157,12 +157,15 @@ def _cols(planes, lo, hi):
 # Plain version
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def nearest_hit_attrs_reference(scene: Scene, o, d, t_min=1e-4, alive=None,
                                 want_attrs=True, chunk=REFERENCE_CHUNK):
     """Closest hit by brute force → (t, prim_id, rows) or (t, prim_id).
 
     The kernel's pair arithmetic and tie rule (lowest id wins), without
-    its culling: rays in chunks of ``chunk``, every primitive each."""
+    its culling: rays in chunks of ``chunk``, every primitive each. Like
+    the kernel it records no autograd graph: the rows carry no gradient
+    (``ops/intersect._WinnerRows`` gives them their backward)."""
     R = o.shape[0]
     o, d = o.detach(), d.detach()
     if alive is None:
@@ -233,10 +236,6 @@ def _check_inputs(scene: Scene, o, d, alive):
         raise ValueError(f"scene is on {scene.device}, rays on {dev}")
     if scene.num_textures:
         raise NotImplementedError("textured scenes on the cuda backend")
-    if any(getattr(scene, k).requires_grad for k in TENSOR_FIELDS):
-        raise NotImplementedError(
-            "gradients through the closest-hit kernel (its scatter-add "
-            "backward is not ported yet)")
     if scene.padded_tris % CLUSTER:
         raise ValueError(f"padded triangle count {scene.padded_tris} is not "
                          f"a multiple of the {CLUSTER}-triangle cluster")
@@ -270,8 +269,9 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
     rays[0:3] = o.detach().T
     rays[3:6] = d.detach().T
     rays[6] = 1.0 if alive is None else alive.to(torch.float32)
-    sph, tri = _pack_spheres(scene), _pack_tris(scene)
-    clu = _cluster_aabbs(scene)
+    with torch.no_grad():  # the planes are kernel input, not graph nodes
+        sph, tri = _pack_spheres(scene), _pack_tris(scene)
+        clu = _cluster_aabbs(scene)
     cmap = _copy_map_tensor(dev)
     n_clusters = -(-scene.num_tris // CLUSTER)
     with torch.cuda.device(dev):

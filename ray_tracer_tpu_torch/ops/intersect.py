@@ -5,9 +5,12 @@ Port of ``ray_tracer_tpu.ops.intersect``. Two stages:
   1. closest-hit search → per-ray ``(t, prim_id)``: the brute-force oracle
      ``nearest_hit`` ("torch" backend) or the hand-written CUDA kernel
      (``closest_hit.nearest_hit_attrs``, "cuda" backend), which also copies
-     out the winner's merged-table row;
+     out the winner's merged-table row; when the scene's gradient is
+     wanted that copy is ``_WinnerRows``, whose backward is the
+     scatter-add kernel (``scatter_rows.scatter_rows_soa``);
   2. ``hit_attributes_from_rows``: recomputes t, point, normal and material
-     of the winner from its merged-table row, in elementwise tensor code.
+     of the winner from its merged-table row, in elementwise tensor code,
+     differentiably in the rays and the rows.
 
 Primitive ids: spheres are ``[0, SP)``, triangles ``[SP, SP + TP)``
 (padded counts); ``t = +inf`` is a miss.
@@ -19,7 +22,7 @@ import dataclasses
 
 import torch
 
-from ..scene import Scene
+from ..scene import TENSOR_FIELDS, Scene
 
 TRI_DET_EPS = 1e-6  # back-face / parallel cutoff
 INF = float("inf")
@@ -267,16 +270,59 @@ def hit_attributes(scene: Scene, o, d, prim_id, miss, t_min):
 # Fused forward path: in-kernel winner-row extraction
 # ---------------------------------------------------------------------------
 
-def _winner_rows(scene, o, d, t_min, alive):
-    """Closest hit with the winners' merged-table rows copied out by the
-    closest-hit kernel → (rows (26, R), prim_id, miss). The rows equal
-    ``_pack_attrs(scene)[prim_id].T`` on hit lanes and are zero on misses.
-    Forward only: scene gradients arrive with the kernel's scatter-add
-    backward."""
+def _nearest_rows(scene, o, d, t_min, alive):
+    """The closest-hit kernel on detached rays → (rows, prim_id, miss)."""
     from .closest_hit import nearest_hit_attrs
     best_t, prim_id, rows = nearest_hit_attrs(scene, o.detach(), d.detach(),
                                               t_min, alive=alive)
     return rows, prim_id, torch.isinf(best_t)
+
+
+class _WinnerRows(torch.autograd.Function):
+    """The winner-row extraction as a differentiable op of the merged table
+    (the reference's ``_winner_rows_c`` custom VJP).
+
+    Forward: the closest-hit kernel (detached rays and scene) copies out
+    each winner's row, which equals ``table[prim_id]`` on hit lanes and is
+    zero on misses. Backward: the transpose of that gather, one scatter-add
+    of the row cotangents into the table (``scatter_rows_soa``), with miss
+    lanes zeroed and routed to the dropped id ``n_rows``. Autograd then
+    carries the table's cotangent through ``_pack_attrs`` to the scene
+    leaves. The rays get no gradient here: theirs flows through
+    ``hit_attributes_from_rows``."""
+
+    @staticmethod
+    def forward(ctx, table, scene, o, d, t_min, alive):
+        rows, prim_id, miss = _nearest_rows(scene, o, d, t_min, alive)
+        ctx.mark_non_differentiable(prim_id, miss)
+        ctx.save_for_backward(prim_id, miss)
+        ctx.n_rows = table.shape[0]
+        return rows, prim_id, miss
+
+    @staticmethod
+    def backward(ctx, g_rows, _g_id, _g_miss):
+        from .scatter_rows import scatter_rows_soa
+        prim_id, miss = ctx.saved_tensors
+        g_soa = torch.where(miss[None], 0.0, g_rows).contiguous()
+        ids = torch.where(miss, ctx.n_rows, prim_id)
+        g_table = scatter_rows_soa(ids, g_soa, ctx.n_rows)
+        return g_table, None, None, None, None, None
+
+
+def _winner_rows(scene, o, d, t_min, alive):
+    """Closest hit with the winners' merged-table rows copied out by the
+    closest-hit kernel → (rows (26, R), prim_id, miss). The rows equal
+    ``_pack_attrs(scene)[prim_id].T`` on hit lanes and are zero on misses.
+
+    When autograd needs the scene's gradient, the extraction runs as
+    ``_WinnerRows`` on ``_pack_attrs(scene)``, whose backward is the
+    scatter-add kernel; otherwise the kernel is called directly, with no
+    table and no graph."""
+    if torch.is_grad_enabled() and any(
+            getattr(scene, k).requires_grad for k in TENSOR_FIELDS):
+        return _WinnerRows.apply(_pack_attrs(scene), scene, o, d, t_min,
+                                 alive)
+    return _nearest_rows(scene, o, d, t_min, alive)
 
 
 def fused_intersect(scene, o, d, t_min, alive):

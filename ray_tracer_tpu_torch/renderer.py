@@ -32,6 +32,7 @@ from .camera import Camera, CameraBasis, camera_basis, camera_rays
 from .envlight import environment_light
 from .ops.intersect import intersect, resolve_backend
 from .scene import Scene
+from .utils.bounds import minimum
 from .utils.config import RenderParams
 
 
@@ -112,7 +113,7 @@ def render_pixels(scene: Scene, basis: CameraBasis, params: RenderParams,
         state, o, d = camera_rays(basis, x, y, (W, H), state)
         state, rad = trace(scene, o, d, state, params)
         if params.clamp > 0.0:
-            rad = torch.clamp(rad, max=params.clamp)  # firefly suppression
+            rad = minimum(rad, params.clamp)  # firefly suppression
         total = total + rad
     return total / float(params.rays_per_pixel)
 

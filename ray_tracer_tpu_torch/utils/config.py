@@ -55,7 +55,7 @@ class RenderParams:
     qmc: bool = False
     # not ported: Russian roulette from this segment index (0 = off)
     rr_start: int = 0
-    # not ported: backward-pass rematerialization (no backward yet)
+    # not ported: backward-pass rematerialization
     remat: bool = False
     # firefly clamp on each sample's radiance (0 = off)
     clamp: float = 0.0

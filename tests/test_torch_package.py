@@ -25,6 +25,8 @@ def test_import_leaves_jax_out():
     code = ("import sys\n"
             "import ray_tracer_tpu_torch, ray_tracer_tpu_torch.renderer\n"
             "import ray_tracer_tpu_torch.ops.closest_hit\n"
+            "import ray_tracer_tpu_torch.ops.scatter_rows\n"
+            "import ray_tracer_tpu_torch.grad.inverse\n"
             "import ray_tracer_tpu_torch.utils.build\n"
             "import ray_tracer_tpu_torch.io\n"
             "bad = [m for m in sys.modules\n"
@@ -101,6 +103,12 @@ def test_kernel_build_is_keyed_by_source_inside_the_repo():
     assert "--use_fast_math" not in build.NVCC_FLAGS
 
 
+def test_each_kernel_builds_into_its_own_library():
+    libs = {build.library_path(n) for n in ("closest_hit", "scatter_rows")}
+    assert len(libs) == 2
+    assert all(p.parent == build.BUILD_DIR for p in libs)
+
+
 def test_image_io_matches_reference(tmp_path):
     img = np.random.default_rng(0).random((6, 5, 3)).astype(np.float32) * 1.2
     np.testing.assert_array_equal(t_image.to_uint8(t_(img)),
@@ -114,10 +122,14 @@ def test_image_io_matches_reference(tmp_path):
 
 
 def test_public_names_match_reference():
-    ported = set(trt.__all__) - {"scene_from_numpy", "io"}
+    ported = set(trt.__all__) - {"scene_from_numpy", "io", "grad"}
     assert ported <= set(jrt.__all__)
     for name in trt.__all__:
         assert hasattr(trt, name), name
+    import ray_tracer_tpu.grad as j_grad
+    assert trt.grad.__all__ == j_grad.__all__
+    for name in trt.grad.__all__:
+        assert hasattr(trt.grad, name), name
 
 
 def test_scene_moves_between_devices_with_to():
