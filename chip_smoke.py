@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths (``ray_tracer_tpu_torch``) once each,
+Drives the port's three paths (``ray_tracer_tpu_torch``) once each,
 through the entry points a user calls, and checks them: the forward render
-path (phase 3) and the training path (phase 5). It imports nothing of JAX.
-Phases, each printing one line (phase 1 one per kernel):
+path (phase 3), the training path (phase 5) and the forward render with
+next-event estimation (phase 7). It imports nothing of JAX. Phases, each
+printing one line (phase 1 one per kernel):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. builds both kernels from the repository's sources, one nvcc each,
-     started together, and prints ptxas's registers and spills;
+  1. builds the three kernels from the repository's sources, one nvcc
+     each, started together, and prints ptxas's registers and spills;
   2. kernel vs its plain PyTorch version on the card, 65,536 rays on each
      of room, metal, random_balls and terrain (camera + random rays, about
      half of them dead), both want_attrs variants: at most 2 id mismatches
@@ -31,9 +32,19 @@ Phases, each printing one line (phase 1 one per kernel):
      each entry within 1e-5 of the plain value plus 1e-6 of the sum of
      |g| over the lanes it adds up; kernel and plain ms at 1080p, and
      whether two kernel runs were bit-equal;
+  2c. (run before 3) the any-hit kernel vs its plain version on the card:
+     65,536 shadow segments on each of room, metal, random_balls, terrain
+     and terrain_nee (terrain plus a 2-triangle light quad and a small
+     emissive sphere), from camera rays' hit points to points from
+     ``lights.sample_lights`` (random points where a scene has no light),
+     about half of the lanes dead, once as they are and once scaled by
+     0.1: 0 mismatches and dead lanes false; then both timed at the main
+     path's shape, the 1080p bounce-0 shadow wavefront of terrain_nee;
   4. path parity: one 256x144 frame through the kernel and through the
      plain oracle (backend "torch") on the same CUDA tensors; the fraction
      of pixels off by more than 2e-2 must be below 2e-3;
+  4b. the same gate with NEE, on terrain_nee and room, each with nee, nee
+     without MIS, and nee with Russian roulette from segment 1;
   5. the training path: ``grad.make_train_step`` over
      ``DEFAULT_TRAINABLE`` (Adam, 1e-2 on the albedos and 1e-4 on the
      geometry: ``train_optimizer``) at the main path's settings (terrain
@@ -49,15 +60,27 @@ Phases, each printing one line (phase 1 one per kernel):
      leaf of a 256x144 terrain frame through the kernels (backend "cuda")
      and through the plain oracle (backend "torch") on the same CUDA
      tensors; the images must be equal, and per leaf max |diff| <= 1e-4 x
-     that leaf's max |g|.
+     that leaf's max |g|;
+  6b. the same gradient gate with NEE on terrain_nee at 256x144 b3 (the
+     emission leaves now get gradient through the light table);
+  7. the NEE path: ``render_progressive`` of terrain_nee at phase 3's
+     settings with ``nee=True, mis=True``; closest-hit launches must rise
+     by frames x (bounces + 1), any-hit launches by frames x bounces (no
+     shadow rays at the last segment), scatter-add by 0; the image finite
+     and not constant; segments/s as in phase 3, and, ungated, the image
+     mean against a ``nee=False`` render of the same frames; then the
+     same for the room scene at 1080p without the sky.
 
-Then it prints the kernels' JSON line and, last, one JSON line
+Then it prints the kernels' JSON line (with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its operations, counted on this
+run's inputs, over 67 TFLOP/s f32) and, last, one JSON line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. ``--profile`` adds measurements: where one main-path
-frame's time goes (torch.profiler), for terrain and for the room scene at
-the same settings, and where one training step's time goes. ``--out DIR``
-writes a 4x-downsampled main-path image (``chip_smoke_terrain.npy``) and,
-with ``--profile``, the profiler tables (``chip_smoke_profile_<name>.txt``)
+frame's time goes (torch.profiler), for terrain, for the room scene at
+the same settings and for one NEE frame of terrain_nee, and where one
+training step's time goes. ``--out DIR`` writes 4x-downsampled images
+(``chip_smoke_terrain.npy``, ``chip_smoke_terrain_nee.npy``) and, with
+``--profile``, the profiler tables (``chip_smoke_profile_<name>.txt``)
 into DIR; without it nothing is written.
 
 Usage: python3 chip_smoke.py [--profile] [--out DIR]
@@ -76,8 +99,9 @@ import numpy as np
 import torch
 
 import ray_tracer_tpu_torch as rt
-from ray_tracer_tpu_torch import sampling
+from ray_tracer_tpu_torch import lights, renderer, sampling
 from ray_tracer_tpu_torch.grad import DEFAULT_TRAINABLE, make_train_step
+from ray_tracer_tpu_torch.ops import anyhit as ah
 from ray_tracer_tpu_torch.ops import closest_hit as ch
 from ray_tracer_tpu_torch.ops import scatter_rows as sc
 from ray_tracer_tpu_torch.renderer import (_blocked_ids, render_frame,
@@ -104,13 +128,26 @@ ALBEDOS = ("sphere_albedo", "tri_albedo")
 # on the 1080p terrain a sphere's entries sum ~1e5 lanes
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-6
 GRAD_PARITY = 1e-4     # per leaf, x that leaf's max |g|
-# kernel name -> (source, the TPU kernel it replaces)
+NEE = dict(nee=True, mis=True)   # phase 7's knobs on top of PARAMS
+# the NEE variants of phase 4b
+NEE_VARIANTS = {"nee": dict(nee=True), "nee-nomis": dict(nee=True, mis=False),
+                "nee-rr1": dict(nee=True, rr_start=1)}
+# the card's published peaks (H100 SXM at 700 W) for the kernels' bounds
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# f32 operations per pair test and per slab test (the kernels' arithmetic)
+OPS_PER_TRIANGLE, OPS_PER_SPHERE, OPS_PER_BOX = 30, 20, 20
+# kernel name -> (source, the TPU kernel it replaces); the library is the
+# source's stem
 KERNELS = {
     "closest_hit": ("ray_tracer_tpu_torch/csrc/closest_hit.cu",
                     "ray_tracer_tpu/ops/pallas_intersect.py:531"),
     "scatter_rows": ("ray_tracer_tpu_torch/csrc/scatter_rows.cu",
                      "ray_tracer_tpu/ops/pallas_intersect.py:1784"),
+    "any_hit": ("ray_tracer_tpu_torch/csrc/anyhit.cu",
+                "ray_tracer_tpu/ops/pallas_intersect.py:1965"),
 }
+LIBRARIES = [os.path.splitext(os.path.basename(src))[0]
+             for src, _ in KERNELS.values()]
 
 
 def heightfield(n, extent, y0, rng):
@@ -137,9 +174,13 @@ def heightfield(n, extent, y0, rng):
     return verts, normals, idx
 
 
-def terrain_scene(device, n=90, aspect=W / H):
+def terrain_scene(device, n=90, aspect=W / H, with_lights=False):
     """Terrain of 2 (n-1)^2 triangles (15,842 at n=90) with the metal
-    scene's glass, diffuse and glossy spheres resting on it."""
+    scene's glass, diffuse and glossy spheres resting on it. With
+    ``with_lights`` (terrain_nee): a 2x2 quad high above it with the room
+    scene's ceiling-light material (white, strength 10.5), wound so that
+    its geometric normal faces down at the terrain, and one small warm
+    emissive sphere."""
     verts, normals, idx = heightfield(n, 4.0, -1.0, np.random.default_rng(0))
     # heightfield's winding faces -y and the intersection culls back faces:
     # reverse it so the terrain faces the camera above it
@@ -152,6 +193,14 @@ def terrain_scene(device, n=90, aspect=W / H):
         near = np.hypot(verts[:, 0] - x, verts[:, 2]) <= 0.5 + 8.0 / (n - 1)
         y = float(verts[near, 1].max()) + 0.5
         b.add_sphere((x, y, 0.0), 0.5, albedo, (0.0, 0.0, 0.0), 0.0, smooth)
+    if with_lights:
+        quad = np.array([(-1, 3, -1), (1, 3, -1), (1, 3, 1), (-1, 3, 1)],
+                        np.float32)
+        b.add_mesh(quad, [(0.0, -1.0, 0.0)] * 4, [0, 1, 2, 0, 2, 3],
+                   albedo=(1.0, 1.0, 1.0), emission=(1.0, 1.0, 1.0),
+                   emission_strength=10.5, smoothness=0.0)
+        b.add_sphere((2.0, 0.2, -1.5), 0.25, (1.0, 1.0, 1.0),
+                     (1.0, 0.8, 0.6), 20.0, 0.0)
     cam = rt.Camera(origin=(0.0, 1.5, 6.0), look_at=(0.0, -0.8, 0.0),
                     fov=45.0, aspect=aspect)
     return b.build(device=device), cam
@@ -167,6 +216,94 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes, ops):
+    """The least time (ms) the card could take for a kernel's work: the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate and its f32 operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(nbytes), ops=int(ops))
+
+
+def plane_bytes(scene):
+    """Bytes of the sphere, triangle and cluster-box planes."""
+    return 4 * (scene.padded_spheres * 16 + scene.padded_tris * 32
+                + scene.padded_tris // ch.CLUSTER * 8)
+
+
+@torch.no_grad()
+def traversal_work(scene, o, d, alive, t_min=1e-4, t_max=None, chunk=2048):
+    """(sphere pairs, cluster boxes, triangle pairs) that the closest-hit
+    kernel (``t_max`` None) or the any-hit kernel tests for these rays, as
+    their loops visit them (measurement only, brute force in chunks of
+    live lanes). Closest hit: every live lane tests every valid sphere and
+    every real cluster box, and the 64 triangles of each box it enters
+    closer than its best so far (the best over the spheres and the
+    clusters before it). Any hit: a lane stops at its first blocking
+    primitive, spheres first, then clusters in ascending order."""
+    live = alive.nonzero()[:, 0]
+    o, d = o[live], d[live]
+    sph, tri = ch._pack_spheres(scene), ch._pack_tris(scene)
+    C = -(-scene.num_tris // ch.CLUSTER)
+    tri, clu = tri[:C * ch.CLUSTER], ch._cluster_aabbs(scene)[:C]
+    sc, (r2,), sv = ch._cols(sph, 0, 3), ch._cols(sph, 3, 4), sph[None, :, 4]
+    sv = sv > 0.5
+    ta, te1, te2, tn_ = (ch._cols(tri, 0, 3), ch._cols(tri, 3, 6),
+                         ch._cols(tri, 6, 9), ch._cols(tri, 9, 12))
+    lo, hi = ch._cols(clu, 0, 3), ch._cols(clu, 3, 6)
+    cid = torch.arange(C, device=o.device)
+    n_valid = sv.sum()
+    seen_valid = sv.cumsum(1)[0]          # valid spheres up to each index
+    totals = torch.zeros(3, dtype=torch.float64, device=o.device)
+    for s in range(0, o.shape[0], chunk):
+        oc = tuple(o[s:s + chunk, k:k + 1] for k in range(3))
+        dc = tuple(d[s:s + chunk, k:k + 1] for k in range(3))
+        r = oc[0].shape[0]
+        a_quad = (dc[0] * dc[0] + dc[1] * dc[1]) + dc[2] * dc[2]
+        t_s, ok_s = ch._sphere_pairs(sc, r2, oc, dc, a_quad, t_min)
+        ok_s = ok_s & sv
+        invd = tuple(1.0 / torch.where(x == 0.0, 1e-30, x) for x in dc)
+        tn, tf = ah._slab_pairs(lo, hi, oc, invd, t_min)
+        t_t, ok_t = ch._mt_pairs(ta, te1, te2, tn_, oc, dc, t_min)
+        if t_max is None:
+            best_s = torch.where(ok_s, t_s, float("inf")).amin(1)
+            c_min = torch.where(ok_t, t_t, float("inf")).view(
+                r, C, ch.CLUSTER).amin(2)
+            before = torch.cat([best_s[:, None], c_min], 1).cummin(1)[0]
+            entered = (tf >= tn) & (tn < before[:, :C])
+            work = (n_valid * r, C * r, ch.CLUSTER * entered.sum())
+        else:
+            blk_s = ok_s & (t_s < t_max)
+            by_sphere = blk_s.any(1)
+            spheres = torch.where(by_sphere,
+                                  seen_valid[blk_s.int().argmax(1)], n_valid)
+            enter = (tf >= tn) & (tn < t_max)
+            blk_t = ok_t & (t_t < t_max) & enter.repeat_interleave(
+                ch.CLUSTER, 1)
+            by_tri = blk_t.any(1)
+            first = blk_t.int().argmax(1)
+            fc = first // ch.CLUSTER
+            boxes = torch.where(by_tri, fc + 1, C)
+            pairs = torch.where(
+                by_tri, ch.CLUSTER * (enter & (cid < fc[:, None])).sum(1)
+                + first % ch.CLUSTER + 1, ch.CLUSTER * enter.sum(1))
+            work = (spheres.sum(), torch.where(by_sphere, 0, boxes).sum(),
+                    torch.where(by_sphere, 0, pairs).sum())
+        totals += torch.stack([torch.as_tensor(w, dtype=torch.float64,
+                                               device=o.device)
+                               for w in work])
+    return [int(x) for x in totals.tolist()]
+
+
+def work_bound(nbytes, work):
+    """bound() of a traversal's bytes and its counted pair and box tests."""
+    spheres, boxes, pairs = work
+    return bound(nbytes, OPS_PER_SPHERE * spheres + OPS_PER_BOX * boxes
+                 + OPS_PER_TRIANGLE * pairs)
 
 
 def phase0_device():
@@ -189,9 +326,9 @@ def phase0_device():
 
 def phase1_build():
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
-        paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
-    for name in KERNELS:
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source
+        paths = dict(zip(LIBRARIES, pool.map(build.build, LIBRARIES)))
+    for name in LIBRARIES:
         build.load(name)
     secs = time.perf_counter() - t0
     for name, path in paths.items():
@@ -291,10 +428,17 @@ def phase2_kernel_vs_plain(device, terrain):
     ms = cuda_ms(lambda: ch.nearest_hit_attrs(scene, o, d, 1e-4, alive), 20)
     plain_ms = cuda_ms(lambda: ch.nearest_hit_attrs_reference(
         scene, o, d, 1e-4, alive), 1)
+    # rays (7 f32) in; t, id and the 26-column row out; the planes once
+    work = traversal_work(scene, o, d, alive)
+    b = work_bound(W * H * 4 * (7 + 2 + 26) + plane_bytes(scene), work)
     print(f"phase 2 main-path shape (terrain, {W}x{H} primary rays, "
           f"{hits} hits, {mism} mism): kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, max |dt| {err}", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err)
+          f"{plain_ms:.3f} ms, max |dt| {err}; tested {work[0]} sphere "
+          f"pairs, {work[1]} boxes, {work[2]} triangle pairs: bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} B, "
+          f"{b['ops']} f32 ops)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
+                mismatches=mism, library_ms=None, **b)
 
 
 def timed_render(scene, basis, params, frames):
@@ -374,19 +518,22 @@ def profile_frame(name, scene, basis, params, out_dir):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    hit_us = [e.time_range.elapsed_us() for e in kernels
-              if "closest_hit" in e.name]
     if out_dir:
         table = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40)
         with open(os.path.join(out_dir, f"chip_smoke_profile_{name}.txt"),
                   "w") as f:
             f.write(table)
+    shares = []
+    for key in ("closest_hit", "anyhit"):
+        us = [e.time_range.elapsed_us() for e in kernels if key in e.name]
+        if us:
+            shares.append(f"{key} per bounce {us} us "
+                          f"({sum(us) / max(busy_us, 1):.1%} of device time)")
     print(f"profile: {name} frame {frame_s * 1e3:.3f} ms wall; "
           f"{len(kernels)} device kernels busy {busy_us / 1e3:.3f} ms "
-          f"({busy_us / 1e6 / frame_s:.1%} of the wall time); closest_hit "
-          f"per bounce {hit_us} us ({sum(hit_us) / max(busy_us, 1):.1%} of "
-          f"device time)", flush=True)
+          f"({busy_us / 1e6 / frame_s:.1%} of the wall time); "
+          + "; ".join(shares), flush=True)
 
 
 def phase4_parity(device, terrain):
@@ -395,12 +542,38 @@ def phase4_parity(device, terrain):
     params = rt.RenderParams(**dict(PARAMS, width=256, height=144))
     a = render_frame(scene, basis, params.replace(backend="cuda"), 0)
     b = render_frame(scene, basis, params.replace(backend="torch"), 0)
-    off = float(((a - b).abs().amax(-1) > PARITY_TOL).float().mean())
+    off = frac_off(a, b)
     if not off < PARITY_GATE:
         raise AssertionError(f"path parity: {off} of pixels off")
     print(f"phase 4 path parity (terrain 256x144, cuda vs torch): "
           f"frac_off {off} (gate {PARITY_GATE}), max |diff| "
           f"{float((a - b).abs().max())}", flush=True)
+
+
+def frac_off(a, b):
+    return float(((a - b).abs().amax(-1) > PARITY_TOL).float().mean())
+
+
+def phase4b_nee_parity(device, terrain_nee):
+    room = rt.builtin_scene("room", aspect=256 / 144, device=device)
+    report = []
+    for name, (scene, cam), skybox in (("terrain_nee", terrain_nee, True),
+                                       ("room", room, False)):
+        basis = rt.camera_basis(cam.replace(aspect=256 / 144))
+        for label, knobs in NEE_VARIANTS.items():
+            params = rt.RenderParams(**dict(PARAMS, width=256, height=144,
+                                            skybox=skybox, **knobs))
+            a = render_frame(scene, basis, params.replace(backend="cuda"), 0)
+            b = render_frame(scene, basis, params.replace(backend="torch"),
+                             0)
+            off = frac_off(a, b)
+            if not off < PARITY_GATE:
+                raise AssertionError(f"NEE path parity {name} {label}: "
+                                     f"{off} of pixels off")
+            report.append(f"{name} {label} {off} (max |diff| "
+                          f"{float((a - b).abs().max()):.3g})")
+    print(f"phase 4b NEE path parity (256x144, cuda vs torch, gate "
+          f"{PARITY_GATE}): " + "; ".join(report), flush=True)
 
 
 def primary_wavefront(scene, cam, device):
@@ -452,11 +625,110 @@ def phase2b_scatter_vs_plain(device, terrain):
     ms = cuda_ms(lambda: sc.scatter_rows_soa(ids, g, n_rows), 20)
     plain_ms = cuda_ms(lambda: sc.scatter_rows_soa_reference(ids, g, n_rows),
                        5)
+    # the library call: one index_add_ over every lane into n_rows + 1
+    # rows, the misses' id n_rows landing in the extra one
+    acc = torch.zeros((n_rows + 1, 26), device=device)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, ids, g.T), 20)
+    # ids and cotangents in, the table out; one add per live entry
+    live = int((ids < n_rows).sum())
+    b = bound(R * 4 * (1 + 26) + n_rows * 26 * 4, live * 26)
     print(f"phase 2b scatter-add vs plain (terrain {W}x{H} primary winners, "
           f"{n_rows} rows x 26): " + "; ".join(report)
-          + f" | dense 1080p: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-          f"two kernel runs bit-equal: {bit_equal}", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err)
+          + f" | dense 1080p: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"index_add_ {library_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']}; two kernel runs bit-equal: {bit_equal}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
+                mismatches=0, library_ms=library_ms, **b)
+
+
+def shadow_segments(scene, cam, n, seed, device):
+    """n shadow segments (o, d, alive): from the hit points of camera rays
+    (a point 5 units along the ray where it misses) to points from
+    ``lights.sample_lights``, or to random points around the scene where
+    it has no light; about half of the lanes dead."""
+    g = np.random.default_rng(seed)
+    basis = rt.camera_basis(cam).to(device)
+    pix = torch.from_numpy(g.integers(0, 256 * 256, size=n)).to(device)
+    state = torch.from_numpy(g.integers(0, 2 ** 32, size=n)).to(device)
+    state, o, d = rt.camera_rays(basis, pix % 256, pix // 256, (256, 256),
+                                 state)
+    t, _ = ch.nearest_hit_attrs(scene, o, d, 1e-4, want_attrs=False)
+    p = o + d * torch.where(torch.isinf(t), 5.0, t)[:, None]
+    table = lights.build_light_table(scene)
+    if bool(table.has_lights):
+        _, ls = lights.sample_lights(table, scene, state, p)
+        seg = ls["wi"]
+    else:
+        spread = torch.from_numpy(g.normal(size=(n, 3)) * 3.0).float()
+        seg = p.mean(0) + spread.to(device) - p
+    alive = torch.from_numpy(g.random(n) < 0.5).to(device)
+    return p.contiguous(), seg.contiguous(), alive
+
+
+def first_shadow_wavefront(scene, cam, params):
+    """The any-hit arguments of the first shadow query of one frame of the
+    NEE path, bounce 0's: (scene, o, d, t_min, t_max, alive)."""
+    seen, real = [], renderer.occluded
+
+    def spy(scene, o, d, t_min, backend, alive):
+        seen.append((scene, o, d, t_min, ah.SHADOW_T_MAX, alive))
+        return real(scene, o, d, t_min=t_min, backend=backend, alive=alive)
+
+    renderer.occluded = spy
+    try:
+        render_frame(scene, rt.camera_basis(cam), params, 0)
+    finally:
+        renderer.occluded = real
+    return seen[0]
+
+
+def phase2c_anyhit_vs_plain(device, terrain, terrain_nee):
+    scenes = {name: rt.builtin_scene(name, aspect=W / H, device=device)
+              for name in ("room", "metal", "random_balls")}
+    scenes["terrain"], scenes["terrain_nee"] = terrain, terrain_nee
+    report = []
+    for si, (name, (scene, cam)) in enumerate(scenes.items()):
+        o, d, alive = shadow_segments(scene, cam, PROBE_RAYS, si, device)
+        for scale in (1.0, 0.1):
+            got = ah.anyhit(scene, o, d * scale, 1e-4, ah.SHADOW_T_MAX,
+                            alive)
+            want = ah.anyhit_reference(scene, o, d * scale, 1e-4,
+                                       ah.SHADOW_T_MAX, alive)
+            mism = int((got != want).sum())
+            if mism or bool(got[~alive].any()):
+                raise AssertionError(f"any-hit {name} x{scale}: {mism} "
+                                     f"mismatches, dead lanes blocked: "
+                                     f"{bool(got[~alive].any())}")
+            report.append(f"{name}{'' if scale == 1.0 else ' x0.1'} {mism} "
+                          f"mism {int(got.sum())}/{int(alive.sum())} "
+                          f"blocked")
+    print(f"phase 2c any-hit vs plain ({PROBE_RAYS} segments): "
+          + "; ".join(report), flush=True)
+
+    # the main path's shape: terrain_nee's 1080p bounce-0 shadow wavefront
+    scene, cam = terrain_nee
+    args = first_shadow_wavefront(scene, cam,
+                                  rt.RenderParams(**PARAMS, **NEE))
+    _, o, d, t_min, t_max, alive = args
+    got, want = ah.anyhit(*args), ah.anyhit_reference(*args)
+    mism = int((got != want).sum())
+    if mism or bool(got[~alive].any()):
+        raise AssertionError(f"any-hit 1080p shadow wavefront: {mism} "
+                             f"mismatches")
+    ms = cuda_ms(lambda: ah.anyhit(*args), 20)
+    plain_ms = cuda_ms(lambda: ah.anyhit_reference(*args), 1)
+    work = traversal_work(scene, o, d, alive, t_min, t_max)
+    # rays (7 f32) in, one bool out; the planes once
+    b = work_bound(o.shape[0] * (7 * 4 + 1) + plane_bytes(scene), work)
+    print(f"phase 2c main-path shape (terrain_nee {W}x{H} bounce-0 shadow "
+          f"rays, {int(alive.sum())} live, {int(got.sum())} blocked, {mism} "
+          f"mism): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; tested "
+          f"{work[0]} sphere pairs, {work[1]} boxes, {work[2]} triangle "
+          f"pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"({b['bytes']} B, {b['ops']} f32 ops)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, mismatches=mism,
+                library_ms=None, **b)
 
 
 def phase5_training(device, terrain, card, profile, out_dir):
@@ -571,10 +843,14 @@ def profile_step(step_fn, trainable, opt, scene, basis, target, step_s,
           f"device time)", flush=True)
 
 
-def phase6_grad_parity(device, terrain):
-    scene, cam = terrain
+def grad_parity(scene, cam, params):
+    """Whole-frame MSE gradients of every float leaf at 256x144 through
+    the kernels (backend "cuda") and the plain oracle ("torch") on the same
+    CUDA tensors → (image equal, image max |diff|, each leaf's max |g|,
+    largest max |diff| / max |g|, its leaf). Raises where a leaf breaks the
+    gate."""
     basis = rt.camera_basis(cam.replace(aspect=256 / 144))
-    params = rt.RenderParams(**dict(PARAMS, width=256, height=144))
+    params = params.replace(width=256, height=144)
     fields = [k for k in TENSOR_FIELDS
               if getattr(scene, k).is_floating_point()]
     with torch.no_grad():
@@ -592,23 +868,104 @@ def phase6_grad_parity(device, terrain):
             k: torch.zeros_like(leaves[k]) if gk is None else gk
             for k, gk in zip(fields, g)})
     (img_k, g_k), (img_p, g_p) = out["cuda"], out["torch"]
-    if not torch.equal(img_k, img_p):
-        raise AssertionError("gradient parity: the two images differ by "
-                             f"{float((img_k - img_p).abs().max())}")
-    worst, worst_leaf, nonzero = 0.0, None, 0
+    worst, worst_leaf, scales = 0.0, None, {}
     for k in fields:
-        scale = float(g_p[k].abs().max())
+        scale = scales[k] = float(g_p[k].abs().max())
         err = float((g_k[k] - g_p[k]).abs().max())
         if err > GRAD_PARITY * scale:
             raise AssertionError(f"gradient parity: {k} differs by {err} "
                                  f"(max |g| {scale})")
-        nonzero += scale > 0
         if scale and err / scale >= worst:
             worst, worst_leaf = err / scale, k
+    return (torch.equal(img_k, img_p), float((img_k - img_p).abs().max()),
+            scales, worst, worst_leaf)
+
+
+def phase6_grad_parity(device, terrain):
+    equal, diff, scales, worst, leaf = grad_parity(
+        *terrain, rt.RenderParams(**PARAMS))
+    if not equal:
+        raise AssertionError(f"gradient parity: the two images differ by "
+                             f"{diff}")
     print(f"phase 6 gradient parity (terrain 256x144 b{BOUNCES}, cuda vs "
-          f"torch, {len(fields)} float leaves, {nonzero} with a gradient): "
-          f"images equal; largest max |diff| / max |g| {worst:.3g} "
-          f"({worst_leaf}; gate {GRAD_PARITY})", flush=True)
+          f"torch, {len(scales)} float leaves, "
+          f"{sum(v > 0 for v in scales.values())} with a gradient): images "
+          f"equal; largest max |diff| / max |g| {worst:.3g} ({leaf}; gate "
+          f"{GRAD_PARITY})", flush=True)
+
+
+def phase6b_nee_grad_parity(device, terrain_nee):
+    equal, diff, scales, worst, leaf = grad_parity(
+        *terrain_nee, rt.RenderParams(**PARAMS, **NEE))
+    emitting = {k: scales[k] for k in (
+        "tri_emission", "tri_emission_strength", "sphere_emission",
+        "sphere_emission_strength")}
+    if not all(emitting.values()):
+        raise AssertionError(f"gradient parity with NEE: an emission leaf "
+                             f"has no gradient: {emitting}")
+    print(f"phase 6b gradient parity with NEE (terrain_nee 256x144 "
+          f"b{BOUNCES}, cuda vs torch, {len(scales)} float leaves, "
+          f"{sum(v > 0 for v in scales.values())} with a gradient; emission "
+          f"leaves' max |g| {emitting}): images equal {equal} (max |diff| "
+          f"{diff}); largest max |diff| / max |g| {worst:.3g} ({leaf}; gate "
+          f"{GRAD_PARITY})", flush=True)
+
+
+def nee_render(name, scene, cam, params, card, profile, out_dir):
+    """Phase 7 on one scene: warm-up, counts to 0, render_progressive,
+    the gates, the timed renders and the nee=False comparison → any-hit
+    launches of the first render."""
+    basis = rt.camera_basis(cam)
+    render_frame(scene, basis, params, 0)            # warm-up frame
+    torch.cuda.synchronize()
+    ch.nearest_hit_attrs.launches = 0
+    ah.anyhit.launches = 0
+    sc.scatter_rows_soa.launches = 0
+    img, secs, enqueue_s = timed_render(scene, basis, params, FRAMES)
+    counts = (ch.nearest_hit_attrs.launches, ah.anyhit.launches,
+              sc.scatter_rows_soa.launches)
+    want = (FRAMES * (BOUNCES + 1), FRAMES * BOUNCES, 0)
+    if counts != want:
+        raise AssertionError(f"{name} NEE path: closest-hit, any-hit, "
+                             f"scatter-add launches {counts} != {want}")
+    if img.shape != (H, W, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{name} NEE image is not finite (H, W, 3)")
+    if float(img.std()) < 1e-3:
+        raise AssertionError(f"{name} NEE image is constant")
+    runs = [secs] + [timed_render(scene, basis, params, FRAMES)[1]
+                     for _ in range(TRIALS - 1)]
+    plain = render_progressive(scene, basis, params.replace(nee=False),
+                               FRAMES)
+    med, best = float(np.median(runs)), min(runs)
+    segs = W * H * (BOUNCES + 1) * FRAMES
+    print(f"phase 7 NEE path: {name} {scene.num_tris} tris {W}x{H} "
+          f"b{BOUNCES} {FRAMES} frames nee+mis skybox={params.skybox}: "
+          f"{segs / med / 1e6:.3f} M segments/s median, "
+          f"{segs / best / 1e6:.3f} best ({len(runs)} runs "
+          f"{[round(r, 4) for r in runs]} s, spread "
+          f"{(max(runs) - best) / best:.2%}; host enqueue {enqueue_s:.4f} s "
+          f"of the first); {counts[0]} closest-hit, {counts[1]} any-hit, "
+          f"{counts[2]} scatter-add launches; image mean "
+          f"{float(img.mean()):.5f} vs {float(plain.mean()):.5f} with "
+          f"nee=False (same frames, ungated) | {card}", flush=True)
+    if out_dir:
+        np.save(os.path.join(out_dir, f"chip_smoke_{name}.npy"),
+                img[::4, ::4].cpu().numpy())
+    if profile:
+        profile_frame(name, scene, basis, params, out_dir)
+    return counts[1]
+
+
+def phase7_nee_path(device, terrain_nee, card, profile, out_dir):
+    params = rt.RenderParams(**PARAMS, **NEE)
+    if resolved_backend(params, terrain_nee[0]) != "cuda":
+        raise AssertionError("backend 'auto' did not resolve to cuda")
+    launches = nee_render("terrain_nee", *terrain_nee, params, card, profile,
+                          out_dir)
+    room = rt.builtin_scene("room", aspect=W / H, device=device)
+    nee_render("room", *room, params.replace(skybox=False), card, profile,
+               None)
+    return launches
 
 
 def main(argv):
@@ -624,20 +981,29 @@ def main(argv):
     device = torch.device("cuda", 0)
     phase1_build()
     terrain = terrain_scene(device)
+    terrain_nee = terrain_scene(device, with_lights=True)
     timing = {"closest_hit": phase2_kernel_vs_plain(device, terrain),
-              "scatter_rows": phase2b_scatter_vs_plain(device, terrain)}
+              "scatter_rows": phase2b_scatter_vs_plain(device, terrain),
+              "any_hit": phase2c_anyhit_vs_plain(device, terrain,
+                                                 terrain_nee)}
+    torch.cuda.empty_cache()
     launches = {"closest_hit": phase3_main_path(device, terrain, card,
                                                 args.profile, args.out)}
     phase4_parity(device, terrain)
+    phase4b_nee_parity(device, terrain_nee)
     launches["scatter_rows"] = phase5_training(
         device, terrain, card, args.profile, args.out)
     torch.cuda.empty_cache()
     phase6_grad_parity(device, terrain)
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches[name],
-        "max_abs_err": timing[name]["max_abs_err"],
-        "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
+    phase6b_nee_grad_parity(device, terrain_nee)
+    torch.cuda.empty_cache()
+    launches["any_hit"] = phase7_nee_path(device, terrain_nee, card,
+                                          args.profile, args.out)
+    keys = ("max_abs_err", "mismatches", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches[name], **{k: timing[name][k] for k in keys})
         for name, (source, replaces) in KERNELS.items()]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

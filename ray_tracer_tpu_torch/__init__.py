@@ -4,16 +4,22 @@ The port of ``ray_tracer_tpu`` (JAX, the reference) to PyTorch on an
 NVIDIA Hopper GPU. Module names mirror the reference's. This package
 imports torch and numpy, never jax. Ported: the forward render path
 (scenes, camera, sampling, materials, sky, intersection and the
-progressive renderer) and the training path (``grad``: the image loss, its
-gradient and the optimizer step). Two hand-written CUDA kernels, built
-with nvcc at first use, carry them: the closest-hit search
-(``ops/closest_hit.py``, ``csrc/closest_hit.cu``) and its backward, the
-scatter-add of the winner rows' cotangents (``ops/scatter_rows.py``,
-``csrc/scatter_rows.cu``).
+progressive renderer), next-event estimation with MIS and Russian
+roulette (``lights``, ``RenderParams.nee``, ``mis``, ``rr_start``) and the
+training path (``grad``: the image loss, its gradient and the optimizer
+step). Three hand-written CUDA kernels, built with nvcc at first use,
+carry them: the closest-hit search (``ops/closest_hit.py``,
+``csrc/closest_hit.cu``), its backward, the scatter-add of the winner
+rows' cotangents (``ops/scatter_rows.py``, ``csrc/scatter_rows.cu``), and
+the any-hit search of NEE's shadow rays (``ops/anyhit.py``,
+``csrc/anyhit.cu``).
+
+Entry points run on the card: the scene builders default to
+``device="cuda"``, and a CPU caller passes ``device="cpu"``.
 
 Quick start:
     >>> import ray_tracer_tpu_torch as rt
-    >>> scene, cam = rt.builtin_scene("metal", aspect=1.0, device="cuda")
+    >>> scene, cam = rt.builtin_scene("metal", aspect=1.0)
     >>> img = rt.render(scene, cam, rt.RenderParams(width=256, height=256,
     ...                                             skybox=True), frames=8)
 
@@ -21,8 +27,9 @@ Quick start:
 plain PyTorch oracle for a scene on the CPU.
 """
 
-from . import grad, io
+from . import grad, io, lights
 from .camera import Camera, CameraBasis, camera_basis, camera_rays
+from .ops.intersect import occluded
 from .renderer import (Renderer, accumulate, render, render_adaptive,
                        render_aov, render_frame, render_pixels,
                        render_progressive, trace)
@@ -48,5 +55,6 @@ __all__ = [
     "render_frame", "render_pixels", "render_progressive", "trace",
     "Scene", "SceneBuilder", "builtin_scene", "scene_balls",
     "scene_from_numpy", "scene_metal", "scene_random_balls", "scene_room",
-    "BUILTIN_SCENES", "SCENE_IDS", "RenderParams", "grad", "io",
+    "BUILTIN_SCENES", "SCENE_IDS", "RenderParams", "grad", "io", "lights",
+    "occluded",
 ]

@@ -14,6 +14,10 @@ Port of ``ray_tracer_tpu.ops.intersect``. Two stages:
 
 Primitive ids: spheres are ``[0, SP)``, triangles ``[SP, SP + TP)``
 (padded counts); ``t = +inf`` is a miss.
+
+``occluded`` answers NEE's shadow queries: the any-hit kernel
+(``anyhit.anyhit``, "cuda" backend) or the oracle's closest hit against
+the segment's end ("torch").
 """
 
 from __future__ import annotations
@@ -349,3 +353,21 @@ def intersect(scene: Scene, o, d, t_min=1e-4, backend: str = "torch",
         return fused_intersect(scene, o, d, t_min, alive)
     best_t, prim_id = nearest_hit(scene, o, d, t_min)
     return hit_attributes(scene, o, d, prim_id, torch.isinf(best_t), t_min)
+
+
+@torch.no_grad()
+def occluded(scene: Scene, o, d, t_min=1e-4, backend: str = "torch",
+             alive=None):
+    """Shadow query → (R,) bool: True where some primitive blocks the
+    segment o → o + d (a hit at t < 1 - 1e-3 in units of |d|).
+
+    "cuda" runs the any-hit kernel (``anyhit.anyhit``: no winner, the first
+    blocking hit settles a lane, dead lanes False); "torch" is the
+    reference's oracle, the closest hit compared with the segment's end
+    (it ignores ``alive``). Visibility is not differentiable: no graph is
+    recorded."""
+    from .anyhit import SHADOW_T_MAX, anyhit
+    if resolve_backend(backend, scene.device) == "cuda":
+        return anyhit(scene, o, d, t_min, SHADOW_T_MAX, alive)
+    best_t, _ = nearest_hit(scene, o, d, t_min)
+    return best_t < SHADOW_T_MAX

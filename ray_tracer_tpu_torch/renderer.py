@@ -1,10 +1,13 @@
 """Wavefront path tracer: bounce-synchronous trace loop + progressive frames.
 
-Port of ``ray_tracer_tpu.renderer`` (forward rendering without NEE,
-Russian roulette or compaction). All rays advance one bounce per step of
-a Python loop over ``bounces + 1`` segments: one closest-hit query, then
-masked elementwise shading. A ray that misses adds the sky once, on the
-segment it dies, and stays dead.
+Port of ``ray_tracer_tpu.renderer`` (without wavefront compaction). All
+rays advance one bounce per step of a Python loop over ``bounces + 1``
+segments: one closest-hit query, then masked elementwise shading. A ray
+that misses adds the sky once, on the segment it dies, and stays dead.
+With ``nee`` a hit also samples a light and casts one shadow ray
+(``occluded``, the any-hit kernel on the card), weighted against BSDF
+sampling by the balance heuristic (``mis``) or suppressing the next
+segment's BSDF-found emission; ``rr_start`` adds Russian roulette.
 
 Radiance recurrence per segment:
     incoming   += emission * strength * throughput    (on hit)
@@ -30,9 +33,10 @@ import torch
 from . import materials, sampling
 from .camera import Camera, CameraBasis, camera_basis, camera_rays
 from .envlight import environment_light
-from .ops.intersect import intersect, resolve_backend
+from .lights import _unit, build_light_table, glossy_mix_pdf, sample_lights
+from .ops.intersect import cross, intersect, occluded, resolve_backend
 from .scene import Scene
-from .utils.bounds import minimum
+from .utils.bounds import clip, maximum, minimum
 from .utils.config import RenderParams
 
 
@@ -43,14 +47,71 @@ def resolved_backend(params: RenderParams, scene: Scene) -> str:
 def check_supported(params: RenderParams) -> None:
     """Raise NotImplementedError, naming the feature, for every switched-on
     knob whose feature is not ported yet."""
-    for name, on in (("nee", params.nee),
-                     ("compaction", params.compaction),
-                     ("rr_start", params.rr_start),
+    for name, on in (("compaction", params.compaction),
                      ("qmc", params.qmc),
                      ("remat", params.remat)):
         if on:
             raise NotImplementedError(f"RenderParams.{name} is not ported "
                                       f"yet")
+
+
+def _mis_bsdf_weight(table, h, o, d, emission_ok, prev_pdf):
+    """Balance-heuristic weight p_bsdf / (p_bsdf + p_nee) of emission that
+    BSDF sampling found at this segment's hits. p_nee is the solid-angle
+    pdf the light sampler would have had for this hit point, from the same
+    table row ``sample_lights`` draws from. Lanes whose previous segment
+    made no NEE attempt (``emission_ok``), and hits NEE cannot reach (not a
+    table light, back-facing, zero power: p_nee = 0) get weight 1."""
+    slot = table.slot[h.prim_id.long()]
+    row = torch.where((slot >= 0)[:, None],
+                      table.packed[slot.clamp(min=0)], 0.0)   # (R, 20)
+    p_light, area_l, kind_l = row[:, 0], row[:, 1], row[:, 6]
+    d_unit = _unit(d)
+    # the emitter's geometric normal, as sample_lights builds it
+    n_tri_l = _unit(cross(row[:, 14:17] - row[:, 11:14],
+                          row[:, 17:20] - row[:, 11:14]))
+    n_sph_l = (h.point - row[:, 7:10]) / maximum(row[:, 10], 1e-12)[:, None]
+    ln = torch.where((kind_l > 0.5)[:, None], n_tri_l, n_sph_l)
+    cos_l = (-d_unit * ln).sum(-1)
+    wi_h = h.point - o
+    d2h = (wi_h * wi_h).sum(-1)
+    reachable = (cos_l > 1e-6) & (p_light > 0.0)
+    p_nee_hit = torch.where(
+        reachable, p_light * d2h / maximum(area_l * cos_l, 1e-20), 0.0)
+    return torch.where(emission_ok, 1.0,
+                       prev_pdf / maximum(prev_pdf + p_nee_hit, 1e-20))
+
+
+def _next_event(scene, h, d, new_dir, albedo, throughput, attempted, ls,
+                params: RenderParams, backend: str):
+    """Direct light of one NEE sample per lane → (radiance to add (R, 3),
+    BSDF pdf of the scatter direction (R,), or None without ``mis``).
+
+    The light sample is weighted by the effective BRDF albedo · p_lobe at
+    its direction (``glossy_mix_pdf``: exact for every smoothness < 1, no
+    shading-normal cosine gate) and, with ``mis``, by p_nee / (p_nee +
+    p_bsdf). Lanes with p_lobe = 0 contribute nothing whatever the
+    occlusion, so they stay out of the shadow query."""
+    wi_unit = ls["wi"] / maximum(ls["dist"], 1e-12)[:, None]
+    refl = materials.reflect(_unit(d), h.normal)
+    pdf_l = glossy_mix_pdf(wi_unit, refl, h.normal,
+                           clip(h.smoothness, 0.0, 1.0),
+                           params.cosine_sampling)
+    nee_lane = attempted & ls["ok"] & (pdf_l > 0.0)
+    blocked = occluded(scene, h.point, ls["wi"], t_min=params.t_min,
+                       backend=backend, alive=nee_lane)
+    direct = (albedo * pdf_l[:, None] * ls["radiance"]
+              * ls["inv_pdf_w"][:, None])
+    pdf_scatter = None
+    if params.mis:
+        # inv_pdf_w = 1 / p_nee, so w_l = 1 / (1 + p_bsdf · inv_pdf_w)
+        w_l = 1.0 / (1.0 + pdf_l * ls["inv_pdf_w"])
+        direct = direct * w_l[:, None]
+        pdf_scatter = glossy_mix_pdf(
+            _unit(new_dir), refl, h.normal,
+            clip(h.smoothness, 0.0, 1.0 - 1e-6), params.cosine_sampling)
+    return torch.where((nee_lane & ~blocked)[:, None], direct * throughput,
+                       0.0), pdf_scatter
 
 
 def trace(scene: Scene, o, d, state, params: RenderParams):
@@ -63,6 +124,13 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
       params: RenderParams.
 
     Returns: (state, radiance (R, 3)).
+
+    RNG stream, as the reference draws it: with ``nee`` every lane draws a
+    light sample on every segment, the last one included; with
+    ``rr_start > 0`` every lane draws the roulette uniform on every
+    segment. The last segment makes no NEE attempt (its direct term would
+    stand in for a segment the depth budget never traces), so it casts no
+    shadow rays: the any-hit query runs once per segment but the last.
     """
     check_supported(params)
     backend = resolved_backend(params, scene)
@@ -73,7 +141,11 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
     throughput = torch.ones_like(o)
     incoming = torch.zeros_like(o)
     alive = torch.ones(o.shape[:1], dtype=torch.bool, device=o.device)
-    for _ in range(params.bounces + 1):
+    if params.nee:
+        table = build_light_table(scene)
+        emission_ok = torch.ones_like(alive)   # NEE double-count guard
+        prev_pdf = torch.zeros_like(o[:, 0])   # BSDF pdf, for MIS
+    for seg in range(params.bounces + 1):
         h = intersect(scene, o, d, t_min=params.t_min, backend=backend,
                       alive=alive)
         active_hit = (alive & h.hit)[:, None]
@@ -86,8 +158,35 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
         albedo = torch.where(is_dielectric[:, None], 1.0, h.albedo)
 
         emitted = h.emission * h.emission_strength[:, None]
-        incoming = incoming + torch.where(active_hit, emitted * throughput,
-                                          0.0)
+        if params.nee and params.mis:
+            w_b = _mis_bsdf_weight(table, h, o, d, emission_ok, prev_pdf)
+            incoming = incoming + torch.where(
+                active_hit, emitted * throughput * w_b[:, None], 0.0)
+        else:
+            count = active_hit
+            if params.nee:
+                # suppress only emitters the table can sample: light from
+                # emitters beyond MAX_LIGHTS still arrives by BSDF sampling
+                in_table = table.slot[h.prim_id.long()] >= 0
+                count = active_hit & (emission_ok | ~in_table)[:, None]
+            incoming = incoming + torch.where(count, emitted * throughput,
+                                              0.0)
+
+        if params.nee:
+            state, ls = sample_lights(table, scene, state, h.point)
+            if seg < params.bounces:
+                # lanes whose direct light NEE now owns; an occluded or
+                # back-facing sample is a valid zero, and still suppresses
+                attempted = (active_hit[:, 0] & ~is_dielectric
+                             & (h.smoothness < params.nee_smoothness_cutoff)
+                             & table.has_lights)
+                direct, pdf_scatter = _next_event(
+                    scene, h, d, new_dir, albedo, throughput, attempted, ls,
+                    params, backend)
+                incoming = incoming + direct
+                if params.mis:
+                    prev_pdf = torch.where(attempted, pdf_scatter, 0.0)
+                emission_ok = ~attempted
         throughput = torch.where(active_hit, throughput * albedo, throughput)
         if params.skybox:
             incoming = incoming + torch.where(
@@ -96,6 +195,16 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
         o = torch.where(active_hit, h.point, o)
         d = torch.where(active_hit, new_dir, d)
         alive = active_hit[:, 0]
+        if params.rr_start:
+            # Russian roulette: survive with p = max-channel throughput in
+            # [0.05, 1]; survivors divide by p, so the estimate is unbiased
+            state, u_rr = sampling.uniform(state)
+            if seg >= params.rr_start:
+                p_surv = clip(throughput.amax(-1), 0.05, 1.0)
+                kill = u_rr >= p_surv
+                throughput = throughput * torch.where(
+                    kill, 1.0, 1.0 / p_surv)[:, None]
+                alive = alive & ~kill
     return state, incoming
 
 

@@ -12,8 +12,10 @@ the reference's pytree:
 ``SceneBuilder.build`` runs the reference's host-side numpy code unchanged
 (median-split or Morton triangle ordering, tangent frames), so triangle ids
 match the reference one for one. ``scene_from_numpy`` carries a reference
-scene across as numpy leaves. The scene's device is wherever its tensors
-live; ``Scene.to`` moves it.
+scene across as numpy leaves. The builders put the scene on the card
+(``device="cuda"``) unless the caller asks for another device, as a CPU
+caller does with ``device="cpu"``; without a card they raise. The scene's
+device is wherever its tensors live; ``Scene.to`` moves it.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ class Scene:
             k: getattr(self, k).to(device) for k in TENSOR_FIELDS})
 
 
-def scene_from_numpy(fields: Dict[str, object], device="cpu") -> Scene:
+def scene_from_numpy(fields: Dict[str, object], device="cuda") -> Scene:
     """Scene from numpy leaves, e.g. a reference scene's
     ``{k: np.asarray(v) for k, v in dataclasses.asdict(jax_scene).items()}``.
     Tensor fields keep their values and dtypes; static counts become ints."""
@@ -188,7 +190,7 @@ class SceneBuilder:
         return pts.min(0), pts.max(0)
 
     def build(self, pad: int = PAD, sort_tris: bool = True,
-              device="cpu") -> Scene:
+              device="cuda") -> Scene:
         """Build the Scene on ``device``.
 
         ``sort_tris`` reorders triangles so that consecutive 64-triangle
@@ -362,7 +364,7 @@ BLACK = (0.0, 0.0, 0.0)
 
 
 def scene_balls(aspect: float = 1.0, pad: int = PAD,
-                device="cpu") -> Tuple[Scene, Camera]:
+                device="cuda") -> Tuple[Scene, Camera]:
     """Default scene, id 0."""
     cam = Camera(origin=(3.089, 1.53, -3.0), look_at=(-2.0, -1.0, 2.0),
                  fov=45.0, aspect=aspect, near=0.1, far=100.0,
@@ -380,7 +382,7 @@ def scene_balls(aspect: float = 1.0, pad: int = PAD,
 
 
 def scene_random_balls(aspect: float = 1.0, seed: int = 0, pad: int = PAD,
-                       device="cpu") -> Tuple[Scene, Camera]:
+                       device="cuda") -> Tuple[Scene, Camera]:
     """Random-balls scene, id 1, laid out from ``seed`` with numpy."""
     cam = Camera(origin=(10.5, 2.0, 3.0), look_at=(0.0, 0.0, 0.0),
                  fov=45.0, aspect=aspect, near=0.1, far=100.0,
@@ -438,7 +440,7 @@ _ROOM_WALL_COLORS = [
 
 
 def scene_room(aspect: float = 1.0, pad: int = PAD,
-               device="cpu") -> Tuple[Scene, Camera]:
+               device="cuda") -> Tuple[Scene, Camera]:
     """Cube room with an emissive ceiling quad, id 2."""
     cam = Camera(origin=(-7.0, 0.0, 0.0), look_at=(1.0, 0.0, 0.0),
                  fov=45.0, aspect=aspect, near=0.1, far=100.0,
@@ -458,7 +460,7 @@ def scene_room(aspect: float = 1.0, pad: int = PAD,
 
 
 def scene_metal(aspect: float = 1.0, pad: int = PAD,
-                device="cpu") -> Tuple[Scene, Camera]:
+                device="cuda") -> Tuple[Scene, Camera]:
     """Three spheres on a ground sphere, id 3."""
     cam = Camera(origin=(0.0, 0.0, 3.0), look_at=(0.0, 0.0, -1.0),
                  fov=45.0, aspect=aspect, near=0.1, far=100.0,

@@ -9,12 +9,13 @@ port's own values:
   * ``"torch"`` — the plain PyTorch intersection oracle (brute force, on
     whatever device the scene lives on);
   * ``"cuda"``  — the hand-written closest-hit kernel
-    (``ops/closest_hit.py``); raises on CPU tensors.
+    (``ops/closest_hit.py``) and, with ``nee``, the any-hit kernel
+    (``ops/anyhit.py``); raises on CPU tensors.
 
-Knobs whose feature is not ported yet (``nee``, ``compaction``,
-``rr_start``, ``qmc``, ``remat``) keep their fields so a configuration
-round-trips, but the renderer raises ``NotImplementedError`` when one is
-switched on (see ``renderer.check_supported``).
+Knobs whose feature is not ported yet (``compaction``, ``qmc``,
+``remat``) keep their fields so a configuration round-trips, but the
+renderer raises ``NotImplementedError`` when one is switched on (see
+``renderer.check_supported``).
 """
 
 from __future__ import annotations
@@ -47,13 +48,16 @@ class RenderParams:
     chunk_pixels: int = 0
     # not ported: wavefront compaction (False | True | "octant" | "morton")
     compaction: object = False
-    # not ported: next-event estimation and its knobs
+    # next-event estimation: one light sample and shadow ray per hit;
+    # lanes at smoothness >= nee_smoothness_cutoff keep BSDF sampling only
     nee: bool = False
     nee_smoothness_cutoff: float = 1.0
+    # with nee: weight NEE and BSDF-found emission by the balance
+    # heuristic (False: NEE lanes suppress the next segment's emission)
     mis: bool = True
     # not ported: low-discrepancy (R2) anti-aliasing
     qmc: bool = False
-    # not ported: Russian roulette from this segment index (0 = off)
+    # Russian roulette from this segment index (0 = off)
     rr_start: int = 0
     # not ported: backward-pass rematerialization
     remat: bool = False

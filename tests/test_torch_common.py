@@ -38,10 +38,35 @@ def heightfield(n, extent, y0, rng):
     return verts, normals, idx
 
 
-def terrain(pkg, n=12, aspect=1.0):
+def cpu(pkg):
+    """Keyword arguments that build ``pkg``'s scene on the CPU: the port's
+    builders default to the card, the reference's take no device."""
+    return {"device": "cpu"} if pkg is trt else {}
+
+
+# terrain_nee's emitters: a 2x2 quad high above the terrain with the room
+# scene's ceiling-light material (white, strength 10.5), wound so that its
+# geometric normal faces down at the terrain, and one small warm sphere
+LIGHT_QUAD = np.array([(-1, 3, -1), (1, 3, -1), (1, 3, 1), (-1, 3, 1)],
+                      np.float32)
+LIGHT_QUAD_INDICES = [0, 1, 2, 0, 2, 3]
+LIGHT_SPHERE = ((2.0, 0.2, -1.5), 0.25, (1.0, 0.8, 0.6), 20.0)
+
+
+def add_lights(b):
+    """The two emitters of terrain_nee, added to builder ``b``."""
+    b.add_mesh(LIGHT_QUAD, [(0.0, -1.0, 0.0)] * 4, LIGHT_QUAD_INDICES,
+               albedo=(1.0, 1.0, 1.0), emission=(1.0, 1.0, 1.0),
+               emission_strength=10.5, smoothness=0.0)
+    center, radius, emission, strength = LIGHT_SPHERE
+    b.add_sphere(center, radius, (1.0, 1.0, 1.0), emission, strength, 0.0)
+
+
+def terrain(pkg, n=12, aspect=1.0, lights=False):
     """Terrain scene in package ``pkg`` (either package): a heightfield of
     2 (n-1)^2 triangles with glass, diffuse and glossy spheres resting on
-    it. Returns (scene, camera)."""
+    it, and with ``lights`` terrain_nee's two emitters (``add_lights``).
+    Returns (scene, camera)."""
     verts, normals, idx = heightfield(n, 4.0, -1.0, np.random.default_rng(0))
     # heightfield's winding faces -y and the intersection culls back faces:
     # reverse it so the terrain faces the camera above it
@@ -55,9 +80,11 @@ def terrain(pkg, n=12, aspect=1.0):
         near = np.hypot(verts[:, 0] - x, verts[:, 2]) <= 0.5 + 8.0 / (n - 1)
         y = float(verts[near, 1].max()) + 0.5
         b.add_sphere((x, y, 0.0), 0.5, albedo, (0.0, 0.0, 0.0), 0.0, smooth)
+    if lights:
+        add_lights(b)
     cam = pkg.Camera(origin=(0.0, 1.5, 6.0), look_at=(0.0, -0.8, 0.0),
                      fov=45.0, aspect=aspect)
-    return b.build(), cam
+    return b.build(**cpu(pkg)), cam
 
 
 def mesh80(pkg):
@@ -71,14 +98,14 @@ def mesh80(pkg):
                    emission_strength=float(rng.random()),
                    smoothness=float(rng.random()))
     cam = pkg.Camera(origin=(0.0, 0.0, 12.0), look_at=(0.0, 0.0, 0.0))
-    return b.build(), cam
+    return b.build(**cpu(pkg)), cam
 
 
 def scene_pair(name, aspect=1.0):
     """(jax scene, port scene, jax camera) for a scene name; the port's
     scene is the reference's, carried across as numpy."""
-    if name == "terrain":
-        js, cam = terrain(jrt, aspect=aspect)
+    if name in ("terrain", "terrain_nee"):
+        js, cam = terrain(jrt, aspect=aspect, lights=name == "terrain_nee")
     elif name == "mesh80":
         js, cam = mesh80(jrt)
     else:
@@ -88,7 +115,8 @@ def scene_pair(name, aspect=1.0):
 
 def to_port(jax_scene):
     return trt.scene_from_numpy(
-        {k: np.asarray(v) for k, v in dataclasses.asdict(jax_scene).items()})
+        {k: np.asarray(v) for k, v in dataclasses.asdict(jax_scene).items()},
+        device="cpu")
 
 
 def probe_rays(cam, n, seed):
@@ -133,6 +161,19 @@ def test_terrain_faces_the_camera_and_has_bench_size():
     top = scene.tri_v0[:scene.num_tris, 1].max()
     assert bool((scene.sphere_center[:3, 1] - 0.5 >= scene.tri_v0[
         :scene.num_tris, 1].min()).all()) and float(top) < 0.0
+
+
+def test_terrain_nee_lights_face_the_terrain():
+    """terrain_nee's quad faces down (its geometric normal e1 x e2 has
+    y < 0), so its light reaches the terrain below, and its sphere glows."""
+    scene, _ = terrain(trt, lights=True)
+    quad = (scene.tri_emission_strength > 0).nonzero()[:, 0]
+    assert quad.numel() == 2
+    e1 = scene.tri_v1[quad] - scene.tri_v0[quad]
+    e2 = scene.tri_v2[quad] - scene.tri_v0[quad]
+    assert bool(((e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2]) < 0).all())
+    assert int((scene.sphere_emission_strength > 0).sum()) == 1
+    assert scene.num_spheres == 4 and scene.num_tris == 244
 
 
 def test_probe_rays_are_half_camera_half_random():

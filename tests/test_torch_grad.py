@@ -134,6 +134,60 @@ def test_whole_frame_grads_match_jax(name, monkeypatch):
     assert assert_grads_close(gf, gj) >= 4
 
 
+NEE_FRAME = 2  # a frame whose NEE images agree in both packages
+
+
+def assert_grads_close_where_finite(got, want, tol=GRAD_TOL):
+    """``assert_grads_close`` on the entries where the reference's gradient
+    is finite; the port's must be finite everywhere. With NEE the
+    reference's gradient is NaN on some entries: ``jnp.linalg.norm`` has a
+    NaN gradient at a zero vector (padding triangles' areas, the zero
+    light row of a hit that is no table light), and the one-hot (R, L)
+    contractions carry that NaN into every table row (0 · NaN = NaN). The
+    port's gathers and ``vector_norm`` (gradient 0 at 0) give finite
+    gradients there."""
+    nonzero = 0
+    for k, w in want.items():
+        assert np.isfinite(got[k]).all(), k
+        fin = np.isfinite(w)
+        if not fin.any():
+            continue
+        scale = float(np.abs(w[fin]).max())
+        err = float(np.abs(got[k][fin] - w[fin]).max())
+        assert err <= tol * scale, (k, err, scale)
+        nonzero += scale > 0
+    return nonzero
+
+
+@pytest.mark.parametrize("mis", [True, False], ids=["mis", "suppress"])
+@pytest.mark.parametrize("name", ["room", "balls"])
+def test_nee_grads_match_jax(name, mis, monkeypatch):
+    """Whole-frame gradients with NEE: the emission leaves now get
+    gradient through the light table too."""
+    params = dict(PARAMS, nee=True, mis=mis)
+    js, ts, cam = scene_pair(name)
+    fields = float_fields(js)
+    target = 0.5 * np.asarray(j_render_frame(
+        js, jrt.camera_basis(cam), jrt.RenderParams(backend="jnp", **params),
+        jnp.int32(0)))
+    lj, img_j, gj = jax_grads(js, cam, fields, target, params, NEE_FRAME)
+    lt, img_t, gt = torch_grads(ts, cam, fields, target, params, NEE_FRAME)
+    assert float(np.abs(img_t - img_j).max()) < IMAGE_TOL
+    assert lt == pytest.approx(lj, rel=1e-5)
+    # balls with MIS: the reference's geometry gradients are all NaN, which
+    # leaves its albedo and emission leaves to compare
+    assert assert_grads_close_where_finite(gt, gj) >= 3
+    emission = "tri_emission" if name == "room" else "sphere_emission"
+    assert np.abs(gt[emission]).max() > 0
+
+    calls = kernel_path_on_cpu(monkeypatch)
+    lf, img_f, gf = torch_grads(ts, cam, fields, target, params, NEE_FRAME,
+                                backend="cuda")
+    assert len(calls) == PARAMS["bounces"] + 1
+    assert float(np.abs(img_f - img_j).max()) < IMAGE_TOL
+    assert assert_grads_close_where_finite(gf, gj) >= 3
+
+
 def test_scatter_smoothness_grad_at_the_bounds():
     """d(new_dir)/d(smoothness) at exactly 0 and 1 (the clip bounds), and
     inside them, against JAX: half the one-sided slope at a bound."""

@@ -19,7 +19,7 @@ from ray_tracer_tpu.renderer import render_frame as j_render_frame
 from ray_tracer_tpu_torch.grad import inverse as tinv
 from ray_tracer_tpu_torch.renderer import render_frame, render_pixels
 
-from test_torch_common import to_port, t_
+from test_torch_common import cpu, to_port, t_
 
 
 def _one_sphere(pkg, albedo=(0.7, 0.3, 0.3)):
@@ -27,7 +27,7 @@ def _one_sphere(pkg, albedo=(0.7, 0.3, 0.3)):
     scene = (pkg.SceneBuilder()
              .add_sphere((0, 0, -3), 1.0, albedo, emission=(1, 1, 1),
                          emission_strength=0.5)
-             .build(pad=8))
+             .build(pad=8, **cpu(pkg)))
     cam = pkg.Camera(origin=(0, 0, 0), look_at=(0, 0, -1), fov=30.0,
                      aspect=1.0)
     params = pkg.RenderParams(width=12, height=12, bounces=1, skybox=True,
@@ -40,7 +40,7 @@ def test_chunked_grad_matches_whole_frame(chunks):
     """chunked_mse_value_and_grad reproduces the whole-frame loss and
     gradients up to f32 summation order; 3 chunks do not divide W*H, so
     the last one carries zero-weighted padding."""
-    scene, cam = trt.scene_metal(aspect=2.0)
+    scene, cam = trt.scene_metal(aspect=2.0, device="cpu")
     params = trt.RenderParams(width=64, height=32, bounces=2, skybox=True,
                               backend="torch")
     basis = trt.camera_basis(cam)
@@ -123,7 +123,7 @@ def test_train_steps_match_reference():
 
 
 def test_train_step_grad_chunks_takes_the_same_step():
-    scene, cam = trt.scene_metal(aspect=1.0)
+    scene, cam = trt.scene_metal(aspect=1.0, device="cpu")
     params = trt.RenderParams(width=32, height=32, bounces=1, skybox=True,
                               backend="torch")
     basis = trt.camera_basis(cam)
@@ -149,7 +149,7 @@ def test_unported_training_options_raise(kw):
 
 
 def test_sharded_gradient_and_mesh_loss_raise():
-    scene, cam = trt.scene_metal()
+    scene, cam = trt.scene_metal(device="cpu")
     params = trt.RenderParams(width=8, height=8)
     with pytest.raises(NotImplementedError, match="A13"):
         tinv.sharded_chunked_mse_value_and_grad({}, None, params, None, 2,
@@ -169,7 +169,7 @@ def test_step_refuses_tensors_the_optimizer_does_not_own():
 
 
 def test_split_and_merge_round_trip():
-    scene, _ = trt.scene_metal()
+    scene, _ = trt.scene_metal(device="cpu")
     trainable, frozen = tinv.split_scene(scene, ("sphere_center",))
     assert frozen is scene and trainable["sphere_center"] is \
         scene.sphere_center

@@ -1,6 +1,7 @@
 """The port's package boundary: no JAX, explicit backends, and unported
 features that raise instead of doing something else."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -26,6 +27,8 @@ def test_import_leaves_jax_out():
             "import ray_tracer_tpu_torch, ray_tracer_tpu_torch.renderer\n"
             "import ray_tracer_tpu_torch.ops.closest_hit\n"
             "import ray_tracer_tpu_torch.ops.scatter_rows\n"
+            "import ray_tracer_tpu_torch.ops.anyhit\n"
+            "import ray_tracer_tpu_torch.lights\n"
             "import ray_tracer_tpu_torch.grad.inverse\n"
             "import ray_tracer_tpu_torch.utils.build\n"
             "import ray_tracer_tpu_torch.io\n"
@@ -39,8 +42,30 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "ok"
 
 
+def test_scene_entry_points_default_to_the_card():
+    """The built-in scenes, SceneBuilder.build and scene_from_numpy build
+    on "cuda" unless the caller asks for the CPU. With a card the scene
+    lands there; without one they raise, as torch does, and never carry
+    on on the CPU."""
+    fields = {k: np.asarray(v) for k, v in dataclasses.asdict(
+        jrt.builtin_scene("metal")[0]).items()}
+    builds = {name: lambda name=name: trt.builtin_scene(name)[0]
+              for name in trt.BUILTIN_SCENES}
+    builds["SceneBuilder.build"] = lambda: trt.SceneBuilder().add_sphere(
+        (0, 0, 0), 1.0, (1, 1, 1)).build()
+    builds["scene_from_numpy"] = lambda: trt.scene_from_numpy(fields)
+    if torch.cuda.is_available():
+        for name, make in builds.items():
+            assert make().device.type == "cuda", name
+    else:
+        for name, make in builds.items():
+            with pytest.raises((AssertionError, RuntimeError)):
+                make()
+    assert trt.builtin_scene("metal", device="cpu")[0].device.type == "cpu"
+
+
 def test_backend_resolution():
-    scene, cam = trt.builtin_scene("metal")
+    scene, cam = trt.builtin_scene("metal", device="cpu")
     assert tint.resolve_backend("auto", scene.device) == "torch"
     assert tint.resolve_backend("torch", scene.device) == "torch"
     with pytest.raises(ValueError, match="cuda"):
@@ -50,7 +75,7 @@ def test_backend_resolution():
 
 
 def test_cuda_backend_on_cpu_tensors_raises():
-    scene, cam = trt.builtin_scene("metal")
+    scene, cam = trt.builtin_scene("metal", device="cpu")
     params = trt.RenderParams(width=16, height=16, backend="cuda")
     with pytest.raises(ValueError, match="cuda"):
         trt.render_frame(scene, trt.camera_basis(cam), params, 0)
@@ -61,10 +86,9 @@ def test_cuda_backend_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("feature,value", [
-    ("nee", True), ("compaction", "octant"), ("rr_start", 2), ("qmc", True),
-    ("remat", True)])
+    ("compaction", "octant"), ("qmc", True), ("remat", True)])
 def test_unported_feature_raises(feature, value):
-    scene, cam = trt.builtin_scene("metal")
+    scene, cam = trt.builtin_scene("metal", device="cpu")
     params = trt.RenderParams(width=16, height=16, **{feature: value})
     with pytest.raises(NotImplementedError, match=feature):
         trt.render(scene, cam, params)
@@ -72,7 +96,7 @@ def test_unported_feature_raises(feature, value):
 
 @pytest.mark.parametrize("fn", ["render_aov", "render_adaptive"])
 def test_unported_entry_point_raises(fn):
-    scene, cam = trt.builtin_scene("metal")
+    scene, cam = trt.builtin_scene("metal", device="cpu")
     with pytest.raises(NotImplementedError, match=fn):
         getattr(trt, fn)(scene, trt.camera_basis(cam), trt.RenderParams())
 
@@ -84,9 +108,9 @@ def test_textures_raise():
     b.add_texture(np.ones((4, 4, 3), np.float32), srgb=False)
     b.add_mesh([(0, 0, 2), (1, 0, 2), (0, 1, 2)], [(0, 0, -1)] * 3,
                [0, 2, 1], uvs=[(0, 0), (1, 0), (0, 1)], tex=0)
-    import dataclasses
     scene = trt.scene_from_numpy({k: np.asarray(v) for k, v in
-                                  dataclasses.asdict(b.build()).items()})
+                                  dataclasses.asdict(b.build()).items()},
+                                 device="cpu")
     assert scene.num_textures == 1
     o, d = torch.zeros((2, 3)), torch.tensor([[0.1, 0.1, 1.0]] * 2)
     with pytest.raises(NotImplementedError, match="textures"):
@@ -104,8 +128,9 @@ def test_kernel_build_is_keyed_by_source_inside_the_repo():
 
 
 def test_each_kernel_builds_into_its_own_library():
-    libs = {build.library_path(n) for n in ("closest_hit", "scatter_rows")}
-    assert len(libs) == 2
+    libs = {build.library_path(n)
+            for n in ("closest_hit", "scatter_rows", "anyhit")}
+    assert len(libs) == 3
     assert all(p.parent == build.BUILD_DIR for p in libs)
 
 
@@ -122,7 +147,8 @@ def test_image_io_matches_reference(tmp_path):
 
 
 def test_public_names_match_reference():
-    ported = set(trt.__all__) - {"scene_from_numpy", "io", "grad"}
+    ported = set(trt.__all__) - {"scene_from_numpy", "io", "grad", "lights",
+                                 "occluded"}
     assert ported <= set(jrt.__all__)
     for name in trt.__all__:
         assert hasattr(trt, name), name

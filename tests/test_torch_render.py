@@ -59,7 +59,7 @@ def test_render_progressive_matches_jax():
 
 
 def test_render_and_renderer_match_progressive():
-    scene, cam = trt.builtin_scene("metal")
+    scene, cam = trt.builtin_scene("metal", device="cpu")
     params = trt.RenderParams(width=16, height=16, bounces=1, skybox=True)
     img = trt.render(scene, cam, params, frames=3)
     want = tr.render_progressive(scene, trt.camera_basis(cam), params, 3)
@@ -72,7 +72,7 @@ def test_render_and_renderer_match_progressive():
 def test_chunked_frame_equals_whole_frame():
     """chunk_pixels traces the frame in pieces without changing it (chunks
     that are whole share tiles keep the coherent draws)."""
-    scene, cam = trt.builtin_scene("room")
+    scene, cam = trt.builtin_scene("room", device="cpu")
     basis = trt.camera_basis(cam)
     params = trt.RenderParams(**PARAMS)
     whole = tr.render_frame(scene, basis, params, 0)
@@ -88,7 +88,8 @@ def test_blocked_order_matches_reference():
         np.testing.assert_array_equal(order, j_order)
         np.testing.assert_array_equal(inverse, j_inverse)
     # non-multiple-of-block sizes unblock through the gather
-    scene, cam = trt.builtin_scene("metal", aspect=40 / 24)
+    scene, cam = trt.builtin_scene("metal", aspect=40 / 24,
+                                  device="cpu")
     img = tr.render_frame(scene, trt.camera_basis(cam),
                           trt.RenderParams(**dict(PARAMS, width=40,
                                                   height=24)), 0)

@@ -87,7 +87,7 @@ def test_camera_rays_allclose():
     multiply-adds and the port's separately rounded products differ by
     an ulp of the summands rather than of the result."""
     _, jc = jrt.builtin_scene("random_balls", aspect=1.5)
-    _, tc = trt.builtin_scene("random_balls", aspect=1.5)
+    _, tc = trt.builtin_scene("random_balls", aspect=1.5, device="cpu")
     W, H = 96, 64
     pix = np.arange(W * H, dtype=np.uint32)
     jst = js.seed_state(jnp.asarray(pix), 3)

@@ -32,7 +32,7 @@ def _assert_same_scene(jax_scene, port_scene):
 @pytest.mark.parametrize("name", ["balls", "random_balls", "room", "metal"])
 def test_builtin_scene_fields_equal(name):
     js, jc = jrt.builtin_scene(name, aspect=1.5)
-    ts, tc = trt.builtin_scene(name, aspect=1.5)
+    ts, tc = trt.builtin_scene(name, aspect=1.5, device="cpu")
     _assert_same_scene(js, ts)
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
 
@@ -66,14 +66,14 @@ def test_scene_from_numpy_round_trip():
     assert moved.device.type == "cpu" and moved.num_tris == ts.num_tris
     back = trt.scene_from_numpy({
         **{k: getattr(ts, k).numpy() for k in TENSOR_FIELDS},
-        **{k: getattr(ts, k) for k in STATIC_FIELDS}})
+        **{k: getattr(ts, k) for k in STATIC_FIELDS}}, device="cpu")
     _assert_same_scene(js, back)
 
 
 @pytest.mark.parametrize("name", ["balls", "random_balls", "room", "metal"])
 def test_camera_basis_equal(name):
     _, jc = jrt.builtin_scene(name, aspect=16 / 9)
-    _, tc = trt.builtin_scene(name, aspect=16 / 9)
+    _, tc = trt.builtin_scene(name, aspect=16 / 9, device="cpu")
     jb, tb = jrt.camera_basis(jc), trt.camera_basis(tc)
     for f in dataclasses.fields(jb):
         got = getattr(tb, f.name)
