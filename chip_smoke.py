@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths (``ray_tracer_tpu_torch``) once each,
-through the entry points a user calls, and checks them: the forward render
-path (phase 3), the training path (phase 5) and the forward render with
-next-event estimation (phase 7). It imports nothing of JAX. Phases, each
-printing one line (phase 1 one per kernel):
+Drives the port's paths (``ray_tracer_tpu_torch``) through the entry
+points a user calls, and checks them: the forward render path (phase 3),
+the training path (phase 5), the forward render with next-event estimation
+(phase 7) and all three on a large scene through the streaming kernel
+(phase 8). It imports nothing of JAX. Each path is driven with the
+kernels' launch counts set to 0 just before it and read just after.
+Phases, each printing one line (phase 1 one per kernel):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. builds the three kernels from the repository's sources, one nvcc
+  1. builds the four kernels from the repository's sources, one nvcc
      each, started together, and prints ptxas's registers and spills;
   2. kernel vs its plain PyTorch version on the card, 65,536 rays on each
      of room, metal, random_balls and terrain (camera + random rays, about
@@ -19,11 +21,12 @@ printing one line (phase 1 one per kernel):
   3. the main path: ``render_progressive`` of the terrain scene (15,842
      triangles, three spheres) at 1920x1080, bounces=3, rpp=1, skybox,
      coherent scatter with the 512-ray share tile, 8 frames, backend
-     "auto" (which resolves to the kernel); the kernel's launch count must
-     rise by exactly frames x (bounces + 1), the image must be finite and
-     not constant; segments/s timed with CUDA events after a warm-up frame
-     (median and best of 5 renders); the scatter-add kernel must not
-     launch on this forward path;
+     "auto" (which resolves to the kernel); the closest-hit kernel's launch
+     count must rise by exactly frames x (bounces + 1), the image must be
+     finite and not constant; segments/s timed with CUDA events after a
+     warm-up frame (median and best of 5 renders); no other kernel may
+     launch on this forward path (the scene is below the streaming
+     kernel's crossover);
   2b. (run before 3) the scatter-add kernel vs its plain version
      (``index_add_``) on the card, on the 1080p terrain primary
      wavefront's winner ids in the blocked pixel order (misses routed to
@@ -40,6 +43,18 @@ printing one line (phase 1 one per kernel):
      about half of the lanes dead, once as they are and once scaled by
      0.1: 0 mismatches and dead lanes false; then both timed at the main
      path's shape, the 1080p bounce-0 shadow wavefront of terrain_nee;
+  2d. (run before 3) the streaming kernel vs its plain version on the
+     card: 65,536 probe rays on terrain190k (the terrain at 190,962
+     triangles, 24 blocks of 8192) and, through the wrapper, on room,
+     metal, random_balls and the 16k terrain (blocks of 8192, and of 1024),
+     both want_attrs variants, with phase 2's gates; the plain version
+     timed on terrain190k's 65,536 rays; then the streaming kernel against
+     the closest-hit kernel on the 1080p primary wavefronts of terrain190k
+     and of the 16k terrain (at most 2 mismatches, bit-equal elsewhere),
+     both timed, with the streaming kernel's bound from the block, cluster
+     and triangle tests its rays make; and the any-hit kernel against the
+     streaming kernel without rows on terrain190k_nee's 1080p bounce-0
+     shadow wavefront (at most 2 mismatches), both timed;
   4. path parity: one 256x144 frame through the kernel and through the
      plain oracle (backend "torch") on the same CUDA tensors; the fraction
      of pixels off by more than 2e-2 must be below 2e-3;
@@ -69,11 +84,21 @@ printing one line (phase 1 one per kernel):
      shadow rays at the last segment), scatter-add by 0; the image finite
      and not constant; segments/s as in phase 3, and, ungated, the image
      mean against a ``nee=False`` render of the same frames; then the
-     same for the room scene at 1080p without the sky.
+     same for the room scene at 1080p without the sky;
+  8. the large-scene path on terrain190k (built on the host; its build
+     time printed), past the crossover: the forward render at phase 3's
+     settings (streaming-kernel launches +32, closest-hit +0), the NEE
+     render on terrain190k_nee (streaming +32 with rows and +24 without,
+     any-hit +0), one warm-up and 3 timed training steps (streaming and
+     scatter-add launches 4 each per step, gradients finite, the last loss
+     below the first, peak memory), image parity at 256x144 against the
+     plain oracle (backend "torch"; fraction off below 2e-3) and gradient
+     parity at 128x72 (per leaf max |diff| <= 1e-4 x max |g|).
 
-Then it prints the kernels' JSON line (with each kernel's bound: the
-larger of its bytes over 3.35 TB/s and its operations, counted on this
-run's inputs, over 67 TFLOP/s f32) and, last, one JSON line
+Then it prints the seconds each phase took, the kernels' JSON line (with
+each kernel's bound: the larger of its bytes over 3.35 TB/s and its
+operations, counted on this run's inputs, over 67 TFLOP/s f32; and the
+rays its plain version was timed on) and, last, one JSON line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. ``--profile`` adds measurements: where one main-path
 frame's time goes (torch.profiler), for terrain, for the room scene at
@@ -81,7 +106,8 @@ the same settings and for one NEE frame of terrain_nee, and where one
 training step's time goes. ``--out DIR`` writes 4x-downsampled images
 (``chip_smoke_terrain.npy``, ``chip_smoke_terrain_nee.npy``) and, with
 ``--profile``, the profiler tables (``chip_smoke_profile_<name>.txt``)
-into DIR; without it nothing is written.
+into DIR; without it nothing is written. With ``--profile`` phase 8 also
+profiles one forward and one NEE frame of the large scene.
 
 Usage: python3 chip_smoke.py [--profile] [--out DIR]
 """
@@ -102,6 +128,7 @@ import ray_tracer_tpu_torch as rt
 from ray_tracer_tpu_torch import lights, renderer, sampling
 from ray_tracer_tpu_torch.grad import DEFAULT_TRAINABLE, make_train_step
 from ray_tracer_tpu_torch.ops import anyhit as ah
+from ray_tracer_tpu_torch.ops import blocked_hit as bh
 from ray_tracer_tpu_torch.ops import closest_hit as ch
 from ray_tracer_tpu_torch.ops import scatter_rows as sc
 from ray_tracer_tpu_torch.renderer import (_blocked_ids, render_frame,
@@ -145,7 +172,17 @@ KERNELS = {
                      "ray_tracer_tpu/ops/pallas_intersect.py:1784"),
     "any_hit": ("ray_tracer_tpu_torch/csrc/anyhit.cu",
                 "ray_tracer_tpu/ops/pallas_intersect.py:1965"),
+    "blocked_hit": ("ray_tracer_tpu_torch/csrc/blocked_hit.cu",
+                    "ray_tracer_tpu/ops/pallas_intersect.py:1084"),
 }
+# kernel name -> its wrapper, whose .launches counts the kernel's launches;
+# "blocked_hit_ids" counts the streaming kernel's launches without rows
+WRAPPERS = {"closest_hit": ch.nearest_hit_attrs,
+            "scatter_rows": sc.scatter_rows_soa,
+            "any_hit": ah.anyhit,
+            "blocked_hit": bh.nearest_hit_blocked}
+LARGE_N = 310          # terrain190k: 2 (310 - 1)^2 = 190,962 triangles
+LARGE_TRAIN_STEPS = 3  # phase 8's timed training steps
 LIBRARIES = [os.path.splitext(os.path.basename(src))[0]
              for src, _ in KERNELS.values()]
 
@@ -204,6 +241,25 @@ def terrain_scene(device, n=90, aspect=W / H, with_lights=False):
     cam = rt.Camera(origin=(0.0, 1.5, 6.0), look_at=(0.0, -0.8, 0.0),
                     fov=45.0, aspect=aspect)
     return b.build(device=device), cam
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    bh.nearest_hit_blocked.ids_launches = 0
+
+
+def read_counts():
+    """Every kernel's launch count since reset_counts()."""
+    counts = {k: w.launches for k, w in WRAPPERS.items()}
+    counts["blocked_hit_ids"] = bh.nearest_hit_blocked.ids_launches
+    return counts
+
+
+def launches(**want):
+    """The launch counts a path must show: those named, the others 0."""
+    return {k: want.get(k, 0) for k in (*WRAPPERS, "blocked_hit_ids")}
 
 
 def cuda_ms(fn, reps):
@@ -304,6 +360,74 @@ def work_bound(nbytes, work):
     spheres, boxes, pairs = work
     return bound(nbytes, OPS_PER_SPHERE * spheres + OPS_PER_BOX * boxes
                  + OPS_PER_TRIANGLE * pairs)
+
+
+@torch.no_grad()
+def blocked_traversal_work(scene, o, d, alive, t_min=1e-4, block=bh.BLOCK,
+                           chunk=2048):
+    """(sphere pairs, block boxes, cluster boxes, triangle pairs) that the
+    streaming kernel tests for these rays, as its loops visit them
+    (measurement only). Every live lane tests every valid sphere and every
+    real block box; it visits the blocks it enters no farther than its
+    spheres' best, nearest first, while the next one starts no farther than
+    its best so far; in each it tests every real cluster box, and the 64
+    triangles of each box it enters no farther than its best over the
+    spheres and the clusters before it (as ``traversal_work``). The
+    triangle tests run per block, on the lanes that visit it."""
+    live = alive.nonzero()[:, 0]
+    o, d = o[live], d[live]
+    n = o.shape[0]
+    G, C, NB = bh.block_layout(scene, block)
+    sph, tri = ch._pack_spheres(scene), ch._pack_tris(scene)
+    clu = ch._cluster_aabbs(scene)[:C]
+    blk = bh._block_aabbs(clu, G)
+    sc, (r2,), sv = ch._cols(sph, 0, 3), ch._cols(sph, 3, 4), sph[None, :, 4]
+    sv = sv > 0.5
+    oc = tuple(o[:, k:k + 1] for k in range(3))                    # (n, 1)
+    dc = tuple(d[:, k:k + 1] for k in range(3))
+    invd = tuple(1.0 / torch.where(x == 0.0, 1e-30, x) for x in dc)
+    best = torch.empty(n, device=o.device)
+    for s in range(0, n, 32 * chunk):
+        osl = tuple(x[s:s + 32 * chunk] for x in oc)
+        dsl = tuple(x[s:s + 32 * chunk] for x in dc)
+        a_quad = (dsl[0] * dsl[0] + dsl[1] * dsl[1]) + dsl[2] * dsl[2]
+        t_s, ok_s = ch._sphere_pairs(sc, r2, osl, dsl, a_quad, t_min)
+        best[s:s + 32 * chunk] = torch.where(ok_s & sv, t_s,
+                                             float("inf")).amin(1)
+    tn, tf = ah._slab_pairs(ch._cols(blk, 0, 3), ch._cols(blk, 3, 6), oc,
+                            invd, t_min)                          # (n, NB)
+    key = torch.where((tf >= tn) & (tn <= best[:, None]), tn, float("inf"))
+    key, order = torch.sort(key, dim=1, stable=True)
+    del tn, tf
+    lo, hi = ch._cols(clu, 0, 3), ch._cols(clu, 3, 6)
+    planes = [ch._cols(tri, k, k + 3) for k in (0, 3, 6, 9)]
+    clusters = pairs = 0
+    for k in range(NB):
+        visit = torch.isfinite(key[:, k]) & (key[:, k] <= best)
+        if not bool(visit.any()):
+            break
+        for b in range(NB):
+            lanes = (visit & (order[:, k] == b)).nonzero()[:, 0]
+            c0, c1 = b * G, min((b + 1) * G, C)
+            cut = (slice(None), slice(c0, c1))
+            tcut = (slice(None), slice(c0 * ch.CLUSTER, c1 * ch.CLUSTER))
+            for s in range(0, lanes.numel(), chunk):
+                r = lanes[s:s + chunk]
+                orr, drr, irr = (tuple(x[r] for x in v)
+                                 for v in (oc, dc, invd))
+                ctn, ctf = ah._slab_pairs(tuple(x[cut] for x in lo),
+                                          tuple(x[cut] for x in hi), orr,
+                                          irr, t_min)
+                t_t, ok_t = ch._mt_pairs(*(tuple(x[tcut] for x in p)
+                                           for p in planes), orr, drr, t_min)
+                c_min = torch.where(ok_t, t_t, float("inf")).view(
+                    r.numel(), c1 - c0, ch.CLUSTER).amin(2)
+                before = torch.cat([best[r, None], c_min], 1).cummin(1)[0]
+                entered = (ctf >= ctn) & (ctn <= before[:, :c1 - c0])
+                clusters += r.numel() * (c1 - c0)
+                pairs += ch.CLUSTER * int(entered.sum())
+                best[r] = before[:, -1]
+    return [int(sv.sum()) * n, n * NB, clusters, pairs]
 
 
 def phase0_device():
@@ -437,8 +561,8 @@ def phase2_kernel_vs_plain(device, terrain):
           f"pairs, {work[1]} boxes, {work[2]} triangle pairs: bound "
           f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} B, "
           f"{b['ops']} f32 ops)", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
-                mismatches=mism, library_ms=None, **b)
+    return dict(ms=ms, plain_ms=plain_ms, plain_rays=W * H,
+                max_abs_err=max_err, mismatches=mism, library_ms=None, **b)
 
 
 def timed_render(scene, basis, params, frames):
@@ -455,43 +579,58 @@ def timed_render(scene, basis, params, frames):
     return img, start.elapsed_time(stop) / 1e3, enqueue_s
 
 
+def rate_text(runs, segs):
+    """Segments/s of timed renders: median, best, the runs and their
+    spread."""
+    med, best = float(np.median(runs)), min(runs)
+    return (f"{segs / med / 1e6:.3f} M segments/s median, "
+            f"{segs / best / 1e6:.3f} best ({len(runs)} runs "
+            f"{[round(r, 4) for r in runs]} s, spread "
+            f"{(max(runs) - best) / best:.2%}")
+
+
+def render_path(label, scene, cam, params, want):
+    """One path's render, checked: a warm-up frame, every launch count to
+    0, ``render_progressive`` of FRAMES frames, the counts held to
+    ``want``, the image finite (H, W, 3) and not constant; then TRIALS - 1
+    more timed renders → (image, counts, device seconds of each render,
+    host seconds to enqueue the first)."""
+    basis = rt.camera_basis(cam)
+    render_frame(scene, basis, params, 0)            # warm-up frame
+    torch.cuda.synchronize()
+    reset_counts()
+    img, secs, enqueue_s = timed_render(scene, basis, params, FRAMES)
+    counts = read_counts()
+    if counts != want:
+        raise AssertionError(f"{label}: kernel launches {counts} != {want}")
+    if img.shape != (H, W, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label} image is not finite (H, W, 3)")
+    if float(img.std()) < 1e-3:
+        raise AssertionError(f"{label} image is constant")
+    runs = [secs] + [timed_render(scene, basis, params, FRAMES)[1]
+                     for _ in range(TRIALS - 1)]
+    return img, counts, runs, enqueue_s
+
+
 def phase3_main_path(device, terrain, card, profile, out_dir):
     scene, cam = terrain
     params = rt.RenderParams(**PARAMS)
     if resolved_backend(params, scene) != "cuda":
         raise AssertionError("backend 'auto' did not resolve to cuda")
-    basis = rt.camera_basis(cam)
-    render_frame(scene, basis, params, 0)            # warm-up frame
-    torch.cuda.synchronize()
-    ch.nearest_hit_attrs.launches = 0
-    sc.scatter_rows_soa.launches = 0
-    img, secs, enqueue_s = timed_render(scene, basis, params, FRAMES)
-    launches = ch.nearest_hit_attrs.launches
-    want = FRAMES * (BOUNCES + 1)
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
-    if sc.scatter_rows_soa.launches:
-        raise AssertionError("the forward path launched the scatter-add "
-                             "kernel")
-    if img.shape != (H, W, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError("main-path image is not finite (H, W, 3)")
-    if float(img.std()) < 1e-3:
-        raise AssertionError("main-path image is constant")
-    runs = [secs] + [timed_render(scene, basis, params, FRAMES)[1]
-                     for _ in range(TRIALS - 1)]
-    med, best = float(np.median(runs)), min(runs)
+    img, counts, runs, enqueue_s = render_path(
+        "terrain", scene, cam, params,
+        launches(closest_hit=FRAMES * (BOUNCES + 1)))
     segs = W * H * 1 * (BOUNCES + 1) * FRAMES
     print(f"phase 3 main path: terrain {scene.num_tris} tris {W}x{H} "
-          f"b{BOUNCES} {FRAMES} frames: {segs / med / 1e6:.3f} M segments/s"
-          f" median, {segs / best / 1e6:.3f} best ({len(runs)} runs "
-          f"{[round(r, 4) for r in runs]} s, spread "
-          f"{(max(runs) - best) / best:.2%}; host enqueue {enqueue_s:.4f} s "
-          f"of the first), {launches} kernel launches, image mean "
-          f"{float(img.mean()):.4f} | {card}", flush=True)
+          f"b{BOUNCES} {FRAMES} frames: {rate_text(runs, segs)}; host "
+          f"enqueue {enqueue_s:.4f} s of the first), {counts['closest_hit']} "
+          f"closest-hit and {counts['blocked_hit']} streaming launches, "
+          f"image mean {float(img.mean()):.4f} | {card}", flush=True)
     if out_dir:
         np.save(os.path.join(out_dir, "chip_smoke_terrain.npy"),
                 img[::4, ::4].cpu().numpy())
     if profile:
+        basis = rt.camera_basis(cam)
         profile_frame("terrain", scene, basis, params, out_dir)
         room, room_cam = rt.builtin_scene("room", aspect=W / H,
                                           device=device)
@@ -501,7 +640,7 @@ def phase3_main_path(device, terrain, card, profile, out_dir):
         print(f"profile: room {W}x{H} {FRAMES} frames "
               f"{segs / room_s / 1e6:.3f} M segments/s", flush=True)
         profile_frame("room", room, room_basis, params, out_dir)
-    return launches
+    return counts["closest_hit"]
 
 
 def profile_frame(name, scene, basis, params, out_dir):
@@ -525,7 +664,7 @@ def profile_frame(name, scene, basis, params, out_dir):
                   "w") as f:
             f.write(table)
     shares = []
-    for key in ("closest_hit", "anyhit"):
+    for key in ("closest_hit", "blocked_hit", "anyhit"):
         us = [e.time_range.elapsed_us() for e in kernels if key in e.name]
         if us:
             shares.append(f"{key} per bounce {us} us "
@@ -536,18 +675,25 @@ def profile_frame(name, scene, basis, params, out_dir):
           + "; ".join(shares), flush=True)
 
 
-def phase4_parity(device, terrain):
-    scene, cam = terrain
+def image_parity(label, scene, cam):
+    """One 256x144 frame at the main path's settings through the kernels
+    and through the plain oracle on the same CUDA tensors → (fraction of
+    pixels off, max |diff|); raises past the gate."""
     basis = rt.camera_basis(cam.replace(aspect=256 / 144))
     params = rt.RenderParams(**dict(PARAMS, width=256, height=144))
     a = render_frame(scene, basis, params.replace(backend="cuda"), 0)
     b = render_frame(scene, basis, params.replace(backend="torch"), 0)
     off = frac_off(a, b)
     if not off < PARITY_GATE:
-        raise AssertionError(f"path parity: {off} of pixels off")
+        raise AssertionError(f"{label} path parity: {off} of pixels off")
+    return off, float((a - b).abs().max())
+
+
+def phase4_parity(device, terrain):
+    off, diff = image_parity("terrain", *terrain)
     print(f"phase 4 path parity (terrain 256x144, cuda vs torch): "
-          f"frac_off {off} (gate {PARITY_GATE}), max |diff| "
-          f"{float((a - b).abs().max())}", flush=True)
+          f"frac_off {off} (gate {PARITY_GATE}), max |diff| {diff}",
+          flush=True)
 
 
 def frac_off(a, b):
@@ -638,7 +784,7 @@ def phase2b_scatter_vs_plain(device, terrain):
           f"index_add_ {library_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by "
           f"{b['bound_by']}; two kernel runs bit-equal: {bit_equal}",
           flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
+    return dict(ms=ms, plain_ms=plain_ms, plain_rays=R, max_abs_err=max_err,
                 mismatches=0, library_ms=library_ms, **b)
 
 
@@ -727,12 +873,19 @@ def phase2c_anyhit_vs_plain(device, terrain, terrain_nee):
           f"{work[0]} sphere pairs, {work[1]} boxes, {work[2]} triangle "
           f"pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
           f"({b['bytes']} B, {b['ops']} f32 ops)", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, mismatches=mism,
-                library_ms=None, **b)
+    return dict(ms=ms, plain_ms=plain_ms, plain_rays=o.shape[0],
+                max_abs_err=0.0, mismatches=mism, library_ms=None, **b)
 
 
-def phase5_training(device, terrain, card, profile, out_dir):
-    scene, cam = terrain
+def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
+    """The training path: ``grad.make_train_step`` over DEFAULT_TRAINABLE
+    at the main path's settings, from the scene with its albedos scaled by
+    ALBEDO_START towards frame 0 of the true scene; one warm-up step and
+    ``steps`` timed steps, each driven with every launch count at 0 and
+    held to bounces + 1 launches of the ``hit`` kernel and of the
+    scatter-add; gradients finite, tri_v0's and tri_albedo's not all zero,
+    the last loss below the first → (line, the launches summed over all
+    steps)."""
     params = rt.RenderParams(**PARAMS)
     basis = rt.camera_basis(cam)
     with torch.no_grad():  # the same frame, so the same sample streams
@@ -742,14 +895,13 @@ def phase5_training(device, terrain, card, profile, out_dir):
         sphere_albedo=scene.sphere_albedo * ALBEDO_START)
     init_fn, step_fn = make_train_step(params, train_optimizer)
     trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
-    per_step = BOUNCES + 1
+    per_step = launches(**{hit: BOUNCES + 1, "scatter_rows": BOUNCES + 1})
+    totals = dict.fromkeys(per_step, 0)
     losses, device_s, host_s = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ch.nearest_hit_attrs.launches = 0
-    sc.scatter_rows_soa.launches = 0
-    for step in range(1 + TRAIN_STEPS):             # step 0 warms up
-        before = (ch.nearest_hit_attrs.launches, sc.scatter_rows_soa.launches)
+    for step in range(1 + steps):                   # step 0 warms up
+        reset_counts()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -759,42 +911,50 @@ def phase5_training(device, terrain, card, profile, out_dir):
         ev1.record()
         enqueue = time.perf_counter() - t0
         torch.cuda.synchronize()
-        b1 = ch.nearest_hit_attrs.launches - before[0]
-        b2 = sc.scatter_rows_soa.launches - before[1]
-        if (b1, b2) != (per_step, per_step):
-            raise AssertionError(f"step {step}: {b1} closest-hit and {b2} "
-                                 f"scatter-add launches, want {per_step}")
+        counts = read_counts()
+        if counts != per_step:
+            raise AssertionError(f"{label} step {step}: launches {counts}, "
+                                 f"want {per_step}")
+        totals = {k: totals[k] + counts[k] for k in totals}
         losses.append(float(loss))
         if step:
             device_s.append(ev0.elapsed_time(ev1) / 1e3)
             host_s.append(enqueue)
-    launches = (ch.nearest_hit_attrs.launches, sc.scatter_rows_soa.launches)
     peak = torch.cuda.max_memory_allocated()
     for k, p in trainable.items():
         if p.grad is None or not bool(torch.isfinite(p.grad).all()):
-            raise AssertionError(f"gradient of {k} is missing or not finite")
+            raise AssertionError(f"{label}: gradient of {k} is missing or "
+                                 f"not finite")
     for k in ("tri_v0", "tri_albedo"):
         if not bool(trainable[k].grad.any()):
-            raise AssertionError(f"gradient of {k} is all zero")
+            raise AssertionError(f"{label}: gradient of {k} is all zero")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
     med = float(np.median(device_s))
     segs = W * H * 1 * (BOUNCES + 1)
-    print(f"phase 5 training path: terrain {W}x{H} b{BOUNCES} Adam "
-          f"({ALBEDO_LR} albedos, {GEOMETRY_LR} geometry) over "
-          f"{len(trainable)} leaves, whole-frame gradient: {med:.4f} s/step median "
-          f"({len(device_s)} steps {[round(x, 4) for x in device_s]} s, "
-          f"spread {(max(device_s) - min(device_s)) / min(device_s):.2%}), "
-          f"{segs / med / 1e6:.3f} M segments/s forward+backward; peak "
-          f"memory {peak / 2 ** 30:.3f} GiB; host enqueue "
-          f"{float(np.median(host_s)):.4f} s vs device {med:.4f} s per step; "
-          f"{launches[0]} closest-hit + {launches[1]} scatter-add launches "
-          f"({per_step} + {per_step} per step); loss {losses[0]:.6g} -> "
-          f"{losses[-1]:.6g} | {card}", flush=True)
+    line = (f"{label} {scene.num_tris} tris {W}x{H} b{BOUNCES} Adam "
+            f"({ALBEDO_LR} albedos, {GEOMETRY_LR} geometry) over "
+            f"{len(trainable)} leaves, whole-frame gradient: {med:.4f} s/step "
+            f"median ({len(device_s)} steps "
+            f"{[round(x, 4) for x in device_s]} s, spread "
+            f"{(max(device_s) - min(device_s)) / min(device_s):.2%}), "
+            f"{segs / med / 1e6:.3f} M segments/s forward+backward; peak "
+            f"memory {peak / 2 ** 30:.3f} GiB; host enqueue "
+            f"{float(np.median(host_s)):.4f} s vs device {med:.4f} s per "
+            f"step; {totals[hit]} {hit} + {totals['scatter_rows']} "
+            f"scatter_rows launches ({BOUNCES + 1} + {BOUNCES + 1} per step); "
+            f"loss {losses[0]:.6g} -> {losses[-1]:.6g} | {card}")
     if profile:
-        profile_step(step_fn, trainable, opt, start, basis, target, med,
+        profile_step(step_fn, trainable, opt, start, basis, target, med, hit,
                      out_dir)
-    return launches[1]
+    return line, totals
+
+
+def phase5_training(device, terrain, card, profile, out_dir):
+    line, totals = train_path("terrain", *terrain, card, TRAIN_STEPS,
+                              "closest_hit", profile, out_dir)
+    print(f"phase 5 training path: {line}", flush=True)
+    return totals["scatter_rows"]
 
 
 def train_optimizer(leaves):
@@ -813,7 +973,7 @@ def train_optimizer(leaves):
 
 
 def profile_step(step_fn, trainable, opt, scene, basis, target, step_s,
-                 out_dir):
+                 hit, out_dir):
     """Where one training step's time goes (measurement only): its device
     kernels under torch.profiler against the step's median device time."""
     from torch.autograd import DeviceType
@@ -828,7 +988,7 @@ def profile_step(step_fn, trainable, opt, scene, basis, target, step_s,
     def us(key):
         return [e.time_range.elapsed_us() for e in kernels if key in e.name]
 
-    hit_us, scatter_us = us("closest_hit"), us("scatter_rows")
+    hit_us, scatter_us = us(hit), us("scatter_rows")
     if out_dir:
         table = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40)
@@ -837,20 +997,20 @@ def profile_step(step_fn, trainable, opt, scene, basis, target, step_s,
             f.write(table)
     print(f"profile: training step {len(kernels)} device kernels busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / 1e6 / step_s:.1%} of the "
-          f"median step's {step_s * 1e3:.3f} ms); closest_hit {hit_us} us, "
+          f"median step's {step_s * 1e3:.3f} ms); {hit} {hit_us} us, "
           f"scatter_rows {scatter_us} us "
           f"({(sum(hit_us) + sum(scatter_us)) / max(busy_us, 1):.1%} of "
           f"device time)", flush=True)
 
 
-def grad_parity(scene, cam, params):
-    """Whole-frame MSE gradients of every float leaf at 256x144 through
+def grad_parity(scene, cam, params, size=(256, 144)):
+    """Whole-frame MSE gradients of every float leaf at ``size`` through
     the kernels (backend "cuda") and the plain oracle ("torch") on the same
     CUDA tensors → (image equal, image max |diff|, each leaf's max |g|,
     largest max |diff| / max |g|, its leaf). Raises where a leaf breaks the
     gate."""
-    basis = rt.camera_basis(cam.replace(aspect=256 / 144))
-    params = params.replace(width=256, height=144)
+    basis = rt.camera_basis(cam.replace(aspect=size[0] / size[1]))
+    params = params.replace(width=size[0], height=size[1])
     fields = [k for k in TENSOR_FIELDS
               if getattr(scene, k).is_floating_point()]
     with torch.no_grad():
@@ -911,41 +1071,24 @@ def phase6b_nee_grad_parity(device, terrain_nee):
           f"{GRAD_PARITY})", flush=True)
 
 
-def nee_render(name, scene, cam, params, card, profile, out_dir):
-    """Phase 7 on one scene: warm-up, counts to 0, render_progressive,
-    the gates, the timed renders and the nee=False comparison → any-hit
-    launches of the first render."""
+def nee_render(phase, name, scene, cam, params, want, card, profile,
+               out_dir):
+    """A NEE path on one scene: ``render_path`` held to ``want``, then,
+    ungated, the image mean against a ``nee=False`` render of the same
+    frames → the launch counts of the checked render."""
+    img, counts, runs, enqueue_s = render_path(f"{name} NEE", scene, cam,
+                                               params, want)
     basis = rt.camera_basis(cam)
-    render_frame(scene, basis, params, 0)            # warm-up frame
-    torch.cuda.synchronize()
-    ch.nearest_hit_attrs.launches = 0
-    ah.anyhit.launches = 0
-    sc.scatter_rows_soa.launches = 0
-    img, secs, enqueue_s = timed_render(scene, basis, params, FRAMES)
-    counts = (ch.nearest_hit_attrs.launches, ah.anyhit.launches,
-              sc.scatter_rows_soa.launches)
-    want = (FRAMES * (BOUNCES + 1), FRAMES * BOUNCES, 0)
-    if counts != want:
-        raise AssertionError(f"{name} NEE path: closest-hit, any-hit, "
-                             f"scatter-add launches {counts} != {want}")
-    if img.shape != (H, W, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError(f"{name} NEE image is not finite (H, W, 3)")
-    if float(img.std()) < 1e-3:
-        raise AssertionError(f"{name} NEE image is constant")
-    runs = [secs] + [timed_render(scene, basis, params, FRAMES)[1]
-                     for _ in range(TRIALS - 1)]
     plain = render_progressive(scene, basis, params.replace(nee=False),
                                FRAMES)
-    med, best = float(np.median(runs)), min(runs)
     segs = W * H * (BOUNCES + 1) * FRAMES
-    print(f"phase 7 NEE path: {name} {scene.num_tris} tris {W}x{H} "
+    print(f"phase {phase} NEE path: {name} {scene.num_tris} tris {W}x{H} "
           f"b{BOUNCES} {FRAMES} frames nee+mis skybox={params.skybox}: "
-          f"{segs / med / 1e6:.3f} M segments/s median, "
-          f"{segs / best / 1e6:.3f} best ({len(runs)} runs "
-          f"{[round(r, 4) for r in runs]} s, spread "
-          f"{(max(runs) - best) / best:.2%}; host enqueue {enqueue_s:.4f} s "
-          f"of the first); {counts[0]} closest-hit, {counts[1]} any-hit, "
-          f"{counts[2]} scatter-add launches; image mean "
+          f"{rate_text(runs, segs)}; host enqueue {enqueue_s:.4f} s of the "
+          f"first); {counts['closest_hit']} closest-hit, "
+          f"{counts['blocked_hit']} streaming ({counts['blocked_hit_ids']} "
+          f"without rows), {counts['any_hit']} any-hit, "
+          f"{counts['scatter_rows']} scatter-add launches; image mean "
           f"{float(img.mean()):.5f} vs {float(plain.mean()):.5f} with "
           f"nee=False (same frames, ungated) | {card}", flush=True)
     if out_dir:
@@ -953,19 +1096,158 @@ def nee_render(name, scene, cam, params, card, profile, out_dir):
                 img[::4, ::4].cpu().numpy())
     if profile:
         profile_frame(name, scene, basis, params, out_dir)
-    return counts[1]
+    return counts
 
 
 def phase7_nee_path(device, terrain_nee, card, profile, out_dir):
     params = rt.RenderParams(**PARAMS, **NEE)
     if resolved_backend(params, terrain_nee[0]) != "cuda":
         raise AssertionError("backend 'auto' did not resolve to cuda")
-    launches = nee_render("terrain_nee", *terrain_nee, params, card, profile,
-                          out_dir)
+    want = launches(closest_hit=FRAMES * (BOUNCES + 1),
+                    any_hit=FRAMES * BOUNCES)
+    counts = nee_render("7", "terrain_nee", *terrain_nee, params, want, card,
+                        profile, out_dir)
     room = rt.builtin_scene("room", aspect=W / H, device=device)
-    nee_render("room", *room, params.replace(skybox=False), card, profile,
-               None)
-    return launches
+    nee_render("7", "room", *room, params.replace(skybox=False), want, card,
+               profile, None)
+    return counts["any_hit"]
+
+
+def phase2d_blocked_vs_plain(device, terrain, large, large_nee):
+    cases = [(name, rt.builtin_scene(name, aspect=W / H, device=device),
+              bh.BLOCK) for name in ("room", "metal", "random_balls")]
+    cases += [("terrain", terrain, bh.BLOCK), ("terrain/1024", terrain, 1024),
+              ("terrain190k", large, bh.BLOCK)]
+    report, max_err = [], 0.0
+    for si, (name, (scene, cam), block) in enumerate(cases):
+        o, d, alive = probe_inputs(scene, cam, PROBE_RAYS, si, device)
+        for want_attrs in (True, False):
+            got = bh.nearest_hit_blocked(scene, o, d, 1e-4, alive,
+                                         want_attrs, block)
+            ref = bh.nearest_hit_blocked_reference(scene, o, d, 1e-4, alive,
+                                                   want_attrs, block)
+            torch.cuda.synchronize()
+            mism, err, hits = compare(got, ref, alive,
+                                      f"streaming {name} attrs={want_attrs}")
+            max_err = max(max_err, err)
+            report.append(f"{name}{'' if want_attrs else '/ids'} {mism} mism "
+                          f"{hits} hits")
+    del got, ref
+    # o, d, alive are terrain190k's probe rays, the last case's
+    probe_ms = cuda_ms(lambda: bh.nearest_hit_blocked(
+        scene, o, d, 1e-4, alive), 20)
+    plain_ms = cuda_ms(lambda: bh.nearest_hit_blocked_reference(
+        scene, o, d, 1e-4, alive), 1)
+    print(f"phase 2d streaming kernel vs plain ({PROBE_RAYS} rays): "
+          + "; ".join(report) + f" | terrain190k {PROBE_RAYS} rays: kernel "
+          f"{probe_ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+
+    # the main path's shape: the 1080p primary wavefronts (blocked pixel
+    # order), streaming vs closest-hit kernel, at 16k and at 190k triangles
+    alive = torch.ones(W * H, dtype=torch.bool, device=device)
+    side = {}
+    for name, (scene, cam) in (("terrain", terrain), ("terrain190k", large)):
+        o, d = primary_wavefront(scene, cam, device)
+        got = bh.nearest_hit_blocked(scene, o, d, 1e-4, alive)
+        ref = ch.nearest_hit_attrs(scene, o, d, 1e-4, alive)
+        torch.cuda.synchronize()
+        mism, err, hits = compare(got, ref, alive, f"{name} 1080p primary: "
+                                  f"streaming vs closest-hit kernel")
+        max_err = max(max_err, err)
+        del got, ref
+        b4_ms = cuda_ms(lambda: bh.nearest_hit_blocked(
+            scene, o, d, 1e-4, alive), 20)
+        b1_ms = cuda_ms(lambda: ch.nearest_hit_attrs(
+            scene, o, d, 1e-4, alive), 10)
+        side[name] = dict(mism=mism, hits=hits, b4_ms=b4_ms, b1_ms=b1_ms)
+    # o, d are terrain190k's; rays (7 f32) in, t, id and the 26-column row
+    # out; the sphere, triangle, cluster and block planes once
+    work = blocked_traversal_work(scene, o, d, alive)
+    b = bound(W * H * 4 * (7 + 2 + 26) + plane_bytes(scene)
+              + bh.block_layout(scene)[2] * 8 * 4,
+              OPS_PER_SPHERE * work[0] + OPS_PER_BOX * (work[1] + work[2])
+              + OPS_PER_TRIANGLE * work[3])
+    # the closest-hit kernel tests every real cluster box of every live ray
+    b1_floor = bound(0, OPS_PER_BOX * W * H * -(-scene.num_tris
+                                                // ch.CLUSTER))
+    print(f"phase 2d main-path shape ({W}x{H} primary rays, blocked pixel "
+          f"order): " + "; ".join(
+              f"{k} ({v['hits']} hits, {v['mism']} mism) streaming "
+              f"{v['b4_ms']:.3f} ms vs closest-hit {v['b1_ms']:.3f} ms"
+              for k, v in side.items())
+          + f" | terrain190k streaming: tested {work[0]} sphere pairs, "
+          f"{work[1]} block boxes, {work[2]} cluster boxes, {work[3]} "
+          f"triangle pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"({b['bytes']} B, {b['ops']} f32 ops); closest-hit's box tests "
+          f"alone {b1_floor['ops']} f32 ops, {b1_floor['bound_ms']:.4f} ms",
+          flush=True)
+
+    # terrain190k_nee's 1080p bounce-0 shadow wavefront: any-hit vs the
+    # streaming kernel without rows (the large-scene path's shadow query)
+    scene, cam = large_nee
+    args = first_shadow_wavefront(scene, cam,
+                                  rt.RenderParams(**PARAMS, **NEE))
+    _, o, d, t_min, t_max, alive = args
+    b3 = ah.anyhit(*args)
+    b4 = bh.nearest_hit_blocked(scene, o, d, t_min, alive, False)[0] < t_max
+    mism = int((b3 != b4).sum())
+    if mism > MAX_ID_MISMATCHES or bool(b4[~alive].any()):
+        raise AssertionError(f"shadow wavefront: any-hit vs streaming "
+                             f"{mism} mismatches")
+    b3_ms = cuda_ms(lambda: ah.anyhit(*args), 10)
+    b4_ms = cuda_ms(lambda: bh.nearest_hit_blocked(scene, o, d, t_min, alive,
+                                                   False), 20)
+    print(f"phase 2d shadow wavefront (terrain190k_nee {W}x{H} bounce 0, "
+          f"{int(alive.sum())} live, {int(b4.sum())} blocked): any-hit vs "
+          f"streaming without rows {mism} mism; any-hit {b3_ms:.3f} ms, "
+          f"streaming {b4_ms:.3f} ms", flush=True)
+    return dict(ms=side["terrain190k"]["b4_ms"], plain_ms=plain_ms,
+                plain_rays=PROBE_RAYS, max_abs_err=max_err,
+                mismatches=side["terrain190k"]["mism"], library_ms=None, **b)
+
+
+def phase8_large_scene(device, large, large_nee, build_s, card, profile,
+                       out_dir):
+    scene, cam = large
+    params = rt.RenderParams(**PARAMS)
+    if not bh.uses_blocked(scene) or resolved_backend(params, scene) != "cuda":
+        raise AssertionError("terrain190k does not take the streaming kernel")
+    img, counts, runs, enqueue_s = render_path(
+        "terrain190k", scene, cam, params,
+        launches(blocked_hit=FRAMES * (BOUNCES + 1)))
+    segs = W * H * 1 * (BOUNCES + 1) * FRAMES
+    print(f"phase 8 large-scene forward: terrain190k {scene.num_tris} tris "
+          f"({scene.padded_tris} padded, {bh.block_layout(scene)[2]} blocks "
+          f"of {bh.BLOCK}; both large scenes built on the host in "
+          f"{build_s:.2f} s) {W}x{H} b{BOUNCES} {FRAMES} frames: {rate_text(runs, segs)}; "
+          f"host enqueue {enqueue_s:.4f} s of the first), "
+          f"{counts['blocked_hit']} streaming and {counts['closest_hit']} "
+          f"closest-hit launches, image mean {float(img.mean()):.4f} | "
+          f"{card}", flush=True)
+    if out_dir:
+        np.save(os.path.join(out_dir, "chip_smoke_terrain190k.npy"),
+                img[::4, ::4].cpu().numpy())
+    if profile:
+        profile_frame("terrain190k", scene, rt.camera_basis(cam), params,
+                      out_dir)
+    nee_render("8", "terrain190k_nee", *large_nee,
+               rt.RenderParams(**PARAMS, **NEE),
+               launches(blocked_hit=FRAMES * (BOUNCES + 1) + FRAMES * BOUNCES,
+                        blocked_hit_ids=FRAMES * BOUNCES),
+               card, profile, out_dir)
+    line, _ = train_path("terrain190k", scene, cam, card, LARGE_TRAIN_STEPS,
+                         "blocked_hit", False, None)
+    print(f"phase 8 large-scene training: {line}", flush=True)
+    torch.cuda.empty_cache()
+    off, diff = image_parity("terrain190k", scene, cam)
+    equal, gdiff, scales, worst, leaf = grad_parity(
+        scene, cam, params, size=(128, 72))
+    print(f"phase 8 large-scene parity (terrain190k, cuda vs torch): 256x144 "
+          f"image frac_off {off} (gate {PARITY_GATE}), max |diff| {diff}; "
+          f"128x72 b{BOUNCES} gradient over {len(scales)} float leaves, "
+          f"images equal {equal} (max |diff| {gdiff}), largest max |diff| / "
+          f"max |g| {worst:.3g} ({leaf}; gate {GRAD_PARITY})", flush=True)
+    return counts["blocked_hit"]
 
 
 def main(argv):
@@ -975,35 +1257,60 @@ def main(argv):
     ap.add_argument("--out", metavar="DIR",
                     help="write the main-path image and profiler tables here")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     card = phase0_device()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     device = torch.device("cuda", 0)
-    phase1_build()
+    secs = {}
+
+    def run(phase, fn, *fn_args):
+        """fn(*fn_args), its seconds (to the card's end) kept under phase."""
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        torch.cuda.synchronize()
+        secs[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    run("1", phase1_build)
     terrain = terrain_scene(device)
     terrain_nee = terrain_scene(device, with_lights=True)
-    timing = {"closest_hit": phase2_kernel_vs_plain(device, terrain),
-              "scatter_rows": phase2b_scatter_vs_plain(device, terrain),
-              "any_hit": phase2c_anyhit_vs_plain(device, terrain,
-                                                 terrain_nee)}
+    t0 = time.perf_counter()
+    large = terrain_scene(device, n=LARGE_N)
+    large_nee = terrain_scene(device, n=LARGE_N, with_lights=True)
+    build_s = time.perf_counter() - t0
+    timing = {"closest_hit": run("2", phase2_kernel_vs_plain, device,
+                                 terrain),
+              "scatter_rows": run("2b", phase2b_scatter_vs_plain, device,
+                                  terrain),
+              "any_hit": run("2c", phase2c_anyhit_vs_plain, device, terrain,
+                             terrain_nee),
+              "blocked_hit": run("2d", phase2d_blocked_vs_plain, device,
+                                 terrain, large, large_nee)}
     torch.cuda.empty_cache()
-    launches = {"closest_hit": phase3_main_path(device, terrain, card,
-                                                args.profile, args.out)}
-    phase4_parity(device, terrain)
-    phase4b_nee_parity(device, terrain_nee)
-    launches["scatter_rows"] = phase5_training(
-        device, terrain, card, args.profile, args.out)
+    counts = {"closest_hit": run("3", phase3_main_path, device, terrain,
+                                 card, args.profile, args.out)}
+    run("4", phase4_parity, device, terrain)
+    run("4b", phase4b_nee_parity, device, terrain_nee)
+    counts["scatter_rows"] = run("5", phase5_training, device, terrain, card,
+                                 args.profile, args.out)
     torch.cuda.empty_cache()
-    phase6_grad_parity(device, terrain)
-    phase6b_nee_grad_parity(device, terrain_nee)
+    run("6", phase6_grad_parity, device, terrain)
+    run("6b", phase6b_nee_grad_parity, device, terrain_nee)
     torch.cuda.empty_cache()
-    launches["any_hit"] = phase7_nee_path(device, terrain_nee, card,
-                                          args.profile, args.out)
-    keys = ("max_abs_err", "mismatches", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+    counts["any_hit"] = run("7", phase7_nee_path, device, terrain_nee, card,
+                            args.profile, args.out)
+    torch.cuda.empty_cache()
+    counts["blocked_hit"] = run("8", phase8_large_scene, device, large,
+                                large_nee, build_s, card, args.profile,
+                                args.out)
+    print(f"seconds per phase: {secs}; whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    keys = ("max_abs_err", "mismatches", "ms", "plain_ms", "plain_rays",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=launches[name], **{k: timing[name][k] for k in keys})
+        launches=counts[name], **{k: timing[name][k] for k in keys})
         for name, (source, replaces) in KERNELS.items()]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,15 @@ imports torch and numpy, never jax. Ported: the forward render path
 progressive renderer), next-event estimation with MIS and Russian
 roulette (``lights``, ``RenderParams.nee``, ``mis``, ``rr_start``) and the
 training path (``grad``: the image loss, its gradient and the optimizer
-step). Three hand-written CUDA kernels, built with nvcc at first use,
-carry them: the closest-hit search (``ops/closest_hit.py``,
-``csrc/closest_hit.cu``), its backward, the scatter-add of the winner
-rows' cotangents (``ops/scatter_rows.py``, ``csrc/scatter_rows.cu``), and
-the any-hit search of NEE's shadow rays (``ops/anyhit.py``,
-``csrc/anyhit.cu``).
+step), on scenes of any size. Four hand-written CUDA kernels, built with
+nvcc at first use, carry them: the closest-hit search
+(``ops/closest_hit.py``, ``csrc/closest_hit.cu``), its backward, the
+scatter-add of the winner rows' cotangents (``ops/scatter_rows.py``,
+``csrc/scatter_rows.cu``), the any-hit search of NEE's shadow rays
+(``ops/anyhit.py``, ``csrc/anyhit.cu``), and the streaming closest-hit
+search that takes both the closest hit and the shadow rays on scenes of
+more than 24,576 padded triangles (``ops/blocked_hit.py``,
+``csrc/blocked_hit.cu``), as the reference's kernels split them.
 
 Entry points run on the card: the scene builders default to
 ``device="cuda"``, and a CPU caller passes ``device="cpu"``.

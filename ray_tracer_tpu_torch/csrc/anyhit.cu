@@ -33,81 +33,41 @@
 // compaction of the sparse shadow lanes (nee lanes are a fraction of the
 // wavefront after the first bounce) so that warps hold only live rays.
 //
-// Numerics: every expression keeps the association of closest_hit.cu and of
-// the plain version (ops/anyhit.py:anyhit_reference, which reuses
-// ops/closest_hit.py:_sphere_pairs and _mt_pairs). The library is built
-// with -fmad=false and without --use_fast_math (utils/build.py), so each
-// pair test rounds as the plain version's does, and the two agree on every
-// lane.
+// Numerics: the pair and box tests are hit_common.cuh's, shared with the
+// closest-hit kernels; they round as the plain version's
+// (ops/anyhit.py:anyhit_reference, which reuses ops/closest_hit.py's
+// _sphere_pairs and _mt_pairs), so the two agree on every lane.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "hit_common.cuh"
+
+using namespace rtt;
 
 namespace {
 
-constexpr int kCluster = 64;   // triangles per cluster (culling unit)
-constexpr int kSphCols = 16;   // _pack_spheres columns
-constexpr int kTriCols = 32;   // _pack_tris columns (untextured)
-constexpr int kBoxCols = 8;    // _cluster_aabbs columns
-constexpr int kThreads = 256;  // threads per block
-constexpr float kDetEps = 1e-6f;
-
 __device__ bool blocked_by_spheres(const float* __restrict__ sph, int SP,
-                                   float ox, float oy, float oz, float dx,
-                                   float dy, float dz, float t_min,
-                                   float t_max) {
-  const float a_quad = (dx * dx + dy * dy) + dz * dz;
+                                   const Ray& r, float t_min, float t_max) {
+  const float a_quad = (r.dx * r.dx + r.dy * r.dy) + r.dz * r.dz;
+  float t;
   for (int s = 0; s < SP; ++s) {
     const float* p = sph + s * kSphCols;
     if (!(p[4] > 0.5f)) continue;  // valid column
-    const float ocx = ox - p[0], ocy = oy - p[1], ocz = oz - p[2];
-    const float b = 2.0f * ((ocx * dx + ocy * dy) + ocz * dz);
-    const float cc = ((ocx * ocx + ocy * ocy) + ocz * ocz) - p[3];
-    const float disc = b * b - 4.0f * a_quad * cc;
-    const float t = (-b - sqrtf(fmaxf(disc, 0.0f))) / (2.0f * a_quad);
-    if (disc >= 0.0f && t >= t_min && t < t_max) return true;
+    if (sphere_hit(p, r, a_quad, t_min, &t) && t < t_max) return true;
   }
   return false;
 }
 
 __device__ bool blocked_by_triangles(const float* __restrict__ tri,
                                      const float* __restrict__ clu,
-                                     int n_clusters, float ox, float oy,
-                                     float oz, float dx, float dy, float dz,
-                                     float t_min, float t_max) {
-  // a huge finite stand-in for a zero direction component avoids 0*inf
-  const float invdx = 1.0f / (dx == 0.0f ? 1e-30f : dx);
-  const float invdy = 1.0f / (dy == 0.0f ? 1e-30f : dy);
-  const float invdz = 1.0f / (dz == 0.0f ? 1e-30f : dz);
+                                     int n_clusters, const Ray& r, float t_min,
+                                     float t_max) {
+  float t;
   for (int c = 0; c < n_clusters; ++c) {
-    const float* box = clu + c * kBoxCols;
-    const float t1x = (box[0] - ox) * invdx, t2x = (box[3] - ox) * invdx;
-    const float t1y = (box[1] - oy) * invdy, t2y = (box[4] - oy) * invdy;
-    const float t1z = (box[2] - oz) * invdz, t2z = (box[5] - oz) * invdz;
-    const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                           fmaxf(fminf(t1z, t2z), t_min));
-    const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                           fmaxf(t1z, t2z));
+    float tn, tf;
+    slab(clu + c * kBoxCols, r, t_min, &tn, &tf);
     if (!(tf >= tn && tn < t_max)) continue;
     const float* q = tri + c * kCluster * kTriCols;
-    for (int k = 0; k < kCluster; ++k, q += kTriCols) {
-      // plane row: a(0:3) e1(3:6) e2(6:9) n = e1 x e2 (9:12) ...
-      const float aox = ox - q[0], aoy = oy - q[1], aoz = oz - q[2];
-      const float det = -((dx * q[9] + dy * q[10]) + dz * q[11]);
-      const float t_num = (aox * q[9] + aoy * q[10]) + aoz * q[11];
-      const float daox = aoy * dz - aoz * dy;  // ao x d
-      const float daoy = aoz * dx - aox * dz;
-      const float daoz = aox * dy - aoy * dx;
-      const float u_num = (q[6] * daox + q[7] * daoy) + q[8] * daoz;
-      const float v_num = -((q[3] * daox + q[4] * daoy) + q[5] * daoz);
-      const float inv = 1.0f / det;
-      const float t = t_num * inv;
-      const float u = u_num * inv;
-      const float v = v_num * inv;
-      if (det >= kDetEps && t >= t_min && u >= 0.0f && v >= 0.0f &&
-          u + v <= 1.0f && t < t_max)
-        return true;
-    }
+    for (int k = 0; k < kCluster; ++k, q += kTriCols)
+      if (triangle_hit(q, r, t_min, &t) && t < t_max) return true;
   }
   return false;
 }
@@ -120,18 +80,10 @@ anyhit_kernel(const float* __restrict__ rays, int R,
               bool* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  // rays: (7, R) SoA rows ox oy oz dx dy dz alive
-  if (!(rays[6 * R + i] > 0.5f)) {
-    out[i] = false;
-    return;
-  }
-  const float ox = rays[i], oy = rays[R + i], oz = rays[2 * R + i];
-  const float dx = rays[3 * R + i], dy = rays[4 * R + i],
-              dz = rays[5 * R + i];
-  out[i] = (has_spheres && blocked_by_spheres(sph, SP, ox, oy, oz, dx, dy,
-                                              dz, t_min, t_max)) ||
-           blocked_by_triangles(tri, clu, n_clusters, ox, oy, oz, dx, dy, dz,
-                                t_min, t_max);
+  const Ray r = load_ray(rays, R, i);
+  out[i] = r.alive &&
+           ((has_spheres && blocked_by_spheres(sph, SP, r, t_min, t_max)) ||
+            blocked_by_triangles(tri, clu, n_clusters, r, t_min, t_max));
 }
 
 }  // namespace

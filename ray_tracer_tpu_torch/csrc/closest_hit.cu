@@ -33,25 +33,17 @@
 // simple per-ray sweep over all cluster boxes; a two-level hierarchy, shared
 // memory tiling of the planes and ray sorting are later work.
 //
-// Numerics: every expression keeps the association of the reference's
-// _mt_pairs / _sphere_pairs / _slab_test, e.g. (d0*n0 + d1*n1) + d2*n2, and
-// inv = 1/det; t = t_num*inv. The library is built with -fmad=false and
-// without --use_fast_math (utils/build.py), so t, u and v are bit-identical
-// to the plain PyTorch version's (ops/closest_hit.py), which rounds every
-// operation separately.
+// Numerics: the pair and box tests are hit_common.cuh's, which keep the
+// association of the reference's _mt_pairs / _sphere_pairs / _slab_test and
+// are built with -fmad=false and without --use_fast_math, so t, u and v are
+// bit-identical to the plain PyTorch version's (ops/closest_hit.py), which
+// rounds every operation separately.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "hit_common.cuh"
+
+using namespace rtt;
 
 namespace {
-
-constexpr int kCluster = 64;   // triangles per cluster (culling unit)
-constexpr int kSphCols = 16;   // _pack_spheres columns
-constexpr int kTriCols = 32;   // _pack_tris columns (untextured)
-constexpr int kBoxCols = 8;    // _cluster_aabbs columns
-constexpr int kRows = 26;      // merged-table width (untextured)
-constexpr int kThreads = 256;  // threads per block
-constexpr float kDetEps = 1e-6f;
 
 template <bool kWantAttrs>
 __global__ void __launch_bounds__(kThreads)
@@ -64,95 +56,40 @@ closest_hit_kernel(const float* __restrict__ rays, int R,
                    float* __restrict__ rows) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  // rays: (7, R) SoA rows ox oy oz dx dy dz alive
-  const float ox = rays[i], oy = rays[R + i], oz = rays[2 * R + i];
-  const float dx = rays[3 * R + i], dy = rays[4 * R + i],
-              dz = rays[5 * R + i];
-  const bool alive = rays[6 * R + i] > 0.5f;
-
+  const Ray r = load_ray(rays, R, i);
   float best_t = INFINITY;
   int best = -1;
-  if (alive) {
+  if (r.alive) {
+    float t;
     // ---- spheres: near-root quadratic (_sphere_pairs) --------------------
     if (has_spheres) {
-      const float a_quad = (dx * dx + dy * dy) + dz * dz;
+      const float a_quad = (r.dx * r.dx + r.dy * r.dy) + r.dz * r.dz;
       for (int s = 0; s < SP; ++s) {
         const float* p = sph + s * kSphCols;
         if (!(p[4] > 0.5f)) continue;  // valid column
-        const float ocx = ox - p[0], ocy = oy - p[1], ocz = oz - p[2];
-        const float b = 2.0f * ((ocx * dx + ocy * dy) + ocz * dz);
-        const float cc = ((ocx * ocx + ocy * ocy) + ocz * ocz) - p[3];
-        const float disc = b * b - 4.0f * a_quad * cc;
-        const float t = (-b - sqrtf(fmaxf(disc, 0.0f))) / (2.0f * a_quad);
-        if (disc >= 0.0f && t >= t_min && t < best_t) {
+        if (sphere_hit(p, r, a_quad, t_min, &t) && t < best_t) {
           best_t = t;
           best = s;
         }
       }
     }
     // ---- triangles: cluster slab test, then Moller-Trumbore -------------
-    // a huge finite stand-in for a zero direction component avoids 0*inf
-    const float invdx = 1.0f / (dx == 0.0f ? 1e-30f : dx);
-    const float invdy = 1.0f / (dy == 0.0f ? 1e-30f : dy);
-    const float invdz = 1.0f / (dz == 0.0f ? 1e-30f : dz);
     for (int c = 0; c < n_clusters; ++c) {
-      const float* box = clu + c * kBoxCols;
-      const float t1x = (box[0] - ox) * invdx, t2x = (box[3] - ox) * invdx;
-      const float t1y = (box[1] - oy) * invdy, t2y = (box[4] - oy) * invdy;
-      const float t1z = (box[2] - oz) * invdz, t2z = (box[5] - oz) * invdz;
-      const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                             fmaxf(fminf(t1z, t2z), t_min));
-      const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                             fmaxf(t1z, t2z));
+      float tn, tf;
+      slab(clu + c * kBoxCols, r, t_min, &tn, &tf);
       if (!(tf >= tn && tn < best_t)) continue;
       const int base = c * kCluster;
       for (int k = 0; k < kCluster; ++k) {
-        // plane row: a(0:3) e1(3:6) e2(6:9) n = e1 x e2 (9:12) ...
-        const float* q = tri + (base + k) * kTriCols;
-        const float aox = ox - q[0], aoy = oy - q[1], aoz = oz - q[2];
-        const float det = -((dx * q[9] + dy * q[10]) + dz * q[11]);
-        const float t_num = (aox * q[9] + aoy * q[10]) + aoz * q[11];
-        const float daox = aoy * dz - aoz * dy;  // ao x d
-        const float daoy = aoz * dx - aox * dz;
-        const float daoz = aox * dy - aoy * dx;
-        const float u_num = (q[6] * daox + q[7] * daoy) + q[8] * daoz;
-        const float v_num = -((q[3] * daox + q[4] * daoy) + q[5] * daoz);
-        const float inv = 1.0f / det;
-        const float t = t_num * inv;
-        const float u = u_num * inv;
-        const float v = v_num * inv;
-        if (det >= kDetEps && t >= t_min && u >= 0.0f && v >= 0.0f &&
-            u + v <= 1.0f && t < best_t) {
+        if (triangle_hit(tri + (base + k) * kTriCols, r, t_min, &t) &&
+            t < best_t) {
           best_t = t;
           best = SP + base + k;
         }
       }
     }
   }
-  t_out[i] = best_t;
-  id_out[i] = best < 0 ? 0 : best;
-  if (kWantAttrs) {
-    // winner's merged-table row; copy_map row 0 = sphere plane columns,
-    // row 1 = triangle plane columns, -1 = zero column
-    const float* src = nullptr;
-    const int* cols = nullptr;
-    if (best >= 0 && best < SP) {
-      src = sph + best * kSphCols;
-      cols = copy_map;
-    } else if (best >= SP) {
-      src = tri + (best - SP) * kTriCols;
-      cols = copy_map + kRows;
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float val = 0.0f;
-      if (src != nullptr) {
-        const int col = cols[r];
-        if (col >= 0) val = src[col];
-      }
-      rows[r * R + i] = val;
-    }
-  }
+  write_hit(i, R, best_t, best, SP, sph, tri, copy_map, t_out, id_out,
+            kWantAttrs ? rows : nullptr);
 }
 
 }  // namespace

@@ -32,7 +32,8 @@ import torch
 from ..scene import Scene
 from . import intersect
 from .closest_hit import (CLUSTER, _check_inputs, _cluster_aabbs, _cols,
-                          _mt_pairs, _pack_spheres, _pack_tris, _sphere_pairs)
+                          _mt_pairs, _pack_spheres, _pack_tris, _rays_soa,
+                          _sphere_pairs)
 
 # end of the shadow segment, in units of |d|: stops short of the light's
 # own surface (the reference's occluded)
@@ -120,11 +121,7 @@ def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
     if R == 0:
         return out
     lib = _library()
-    # the kernel reads one contiguous (7, R) block: o, d, alive
-    rays = torch.empty((7, R), dtype=torch.float32, device=dev)
-    rays[0:3] = o.detach().T
-    rays[3:6] = d.detach().T
-    rays[6] = 1.0 if alive is None else alive.to(torch.float32)
+    rays = _rays_soa(o, d, alive)
     with torch.no_grad():  # the planes are kernel input, not graph nodes
         sph, tri = _pack_spheres(scene), _pack_tris(scene)
         clu = _cluster_aabbs(scene)

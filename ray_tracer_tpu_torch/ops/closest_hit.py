@@ -190,6 +190,13 @@ def nearest_hit_attrs_reference(scene: Scene, o, d, t_min=1e-4, alive=None,
         best = torch.gather(all_t, 1, idx[:, None])[:, 0]
         ts.append(best)
         ids.append(torch.where(torch.isinf(best), 0, idx).to(torch.int32))
+    return _plain_result(scene, o, ts, ids, want_attrs)
+
+
+def _plain_result(scene: Scene, o, ts, ids, want_attrs):
+    """A plain version's per-chunk bests and winner ids → (t, prim_id,
+    rows) or (t, prim_id), the kernels' outputs: id 0 on a miss, and the
+    rows ``_pack_attrs(scene)[prim_id].T``, zero on a miss."""
     best_t = torch.cat(ts) if ts else o.new_zeros((0,))
     prim_id = (torch.cat(ids) if ids
                else torch.zeros((0,), dtype=torch.int32, device=o.device))
@@ -243,6 +250,16 @@ def _check_inputs(scene: Scene, o, d, alive):
         raise ValueError("too many rays or triangles for 32-bit indexing")
 
 
+def _rays_soa(o, d, alive):
+    """The kernels' (7, R) float32 ray block: rows ox oy oz dx dy dz and
+    alive (1.0 or 0.0), detached."""
+    rays = torch.empty((7, o.shape[0]), dtype=torch.float32, device=o.device)
+    rays[0:3] = o.detach().T
+    rays[3:6] = d.detach().T
+    rays[6] = 1.0 if alive is None else alive.to(torch.float32)
+    return rays
+
+
 def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
                       want_attrs=True):
     """Closest hit of each ray → (t (R,), prim_id (R,) int32, rows (26, R))
@@ -265,10 +282,7 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
     if R == 0:
         return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
     lib = _library()
-    rays = torch.empty((7, R), dtype=torch.float32, device=dev)
-    rays[0:3] = o.detach().T
-    rays[3:6] = d.detach().T
-    rays[6] = 1.0 if alive is None else alive.to(torch.float32)
+    rays = _rays_soa(o, d, alive)
     with torch.no_grad():  # the planes are kernel input, not graph nodes
         sph, tri = _pack_spheres(scene), _pack_tris(scene)
         clu = _cluster_aabbs(scene)

@@ -18,6 +18,11 @@ Primitive ids: spheres are ``[0, SP)``, triangles ``[SP, SP + TP)``
 ``occluded`` answers NEE's shadow queries: the any-hit kernel
 (``anyhit.anyhit``, "cuda" backend) or the oracle's closest hit against
 the segment's end ("torch").
+
+On scenes past the reference's crossover (``blocked_hit.uses_blocked``:
+more than 24,576 padded triangles) the "cuda" backend takes the streaming
+closest-hit kernel (``blocked_hit.nearest_hit_blocked``) for both the
+closest hit and the shadow query, as the reference does.
 """
 
 from __future__ import annotations
@@ -275,10 +280,15 @@ def hit_attributes(scene: Scene, o, d, prim_id, miss, t_min):
 # ---------------------------------------------------------------------------
 
 def _nearest_rows(scene, o, d, t_min, alive):
-    """The closest-hit kernel on detached rays → (rows, prim_id, miss)."""
+    """The closest-hit kernel on detached rays → (rows, prim_id, miss): the
+    streaming kernel on scenes past the crossover
+    (``blocked_hit.uses_blocked``), the resident one on the others, as the
+    reference's ``nearest_hit_attrs_pallas`` picks."""
+    from .blocked_hit import nearest_hit_blocked, uses_blocked
     from .closest_hit import nearest_hit_attrs
-    best_t, prim_id, rows = nearest_hit_attrs(scene, o.detach(), d.detach(),
-                                              t_min, alive=alive)
+    hit = nearest_hit_blocked if uses_blocked(scene) else nearest_hit_attrs
+    best_t, prim_id, rows = hit(scene, o.detach(), d.detach(), t_min,
+                                alive=alive)
     return rows, prim_id, torch.isinf(best_t)
 
 
@@ -361,13 +371,27 @@ def occluded(scene: Scene, o, d, t_min=1e-4, backend: str = "torch",
     """Shadow query → (R,) bool: True where some primitive blocks the
     segment o → o + d (a hit at t < 1 - 1e-3 in units of |d|).
 
-    "cuda" runs the any-hit kernel (``anyhit.anyhit``: no winner, the first
-    blocking hit settles a lane, dead lanes False); "torch" is the
-    reference's oracle, the closest hit compared with the segment's end
-    (it ignores ``alive``). Visibility is not differentiable: no graph is
-    recorded."""
-    from .anyhit import SHADOW_T_MAX, anyhit
+    "cuda" runs the kernels (``occluded_kernels``, dead lanes False);
+    "torch" is the reference's oracle, the closest hit compared with the
+    segment's end (it ignores ``alive``). Visibility is not
+    differentiable: no graph is recorded."""
+    from .anyhit import SHADOW_T_MAX
     if resolve_backend(backend, scene.device) == "cuda":
-        return anyhit(scene, o, d, t_min, SHADOW_T_MAX, alive)
+        return occluded_kernels(scene, o, d, t_min, alive)
     best_t, _ = nearest_hit(scene, o, d, t_min)
     return best_t < SHADOW_T_MAX
+
+
+def occluded_kernels(scene: Scene, o, d, t_min, alive):
+    """The "cuda" backend's shadow query: the any-hit kernel
+    (``anyhit.anyhit``: no winner, the first blocking hit settles a lane),
+    or on scenes past the crossover the streaming closest hit without rows
+    compared with the segment's end, as the reference's ``occluded`` does
+    (``ray_tracer_tpu/ops/intersect.py:475-484``)."""
+    from .anyhit import SHADOW_T_MAX, anyhit
+    from .blocked_hit import nearest_hit_blocked, uses_blocked
+    if uses_blocked(scene):
+        best_t, _ = nearest_hit_blocked(scene, o, d, t_min, alive,
+                                        want_attrs=False)
+        return best_t < SHADOW_T_MAX
+    return anyhit(scene, o, d, t_min, SHADOW_T_MAX, alive)

@@ -3,7 +3,9 @@
 Each kernel source ``ray_tracer_tpu_torch/csrc/<name>.cu`` has a plain C
 interface. At first use it is compiled with ``nvcc`` into a shared
 library under ``build/ray_tracer_tpu_torch/`` at the repository root,
-keyed by a hash of the source and the flags, and loaded with ``ctypes``.
+keyed by a hash of the source, of every header it includes from
+``csrc/`` (``#include "..."``, followed recursively) and of the flags, and
+loaded with ``ctypes``.
 The build uses nothing but the repository's sources and the CUDA toolkit.
 ``nvcc`` is taken from ``$CUDA_HOME/bin``, then ``PATH``, then
 ``/usr/local/cuda/bin``.
@@ -20,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,6 +33,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "ray_tracer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def find_nvcc() -> str:
@@ -44,11 +48,27 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def sources(name: str) -> list[str]:
+    """``<name>.cu`` and every file of ``csrc/`` it includes with quotes,
+    directly or through another such header, in a fixed order."""
+    seen, todo = set(), [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f not in seen:
+            seen.add(f)
+            todo += [m.decode() for m in
+                     _INCLUDE.findall((CSRC_DIR / f).read_bytes())]
+    return sorted(seen)
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: its name
+    carries a hash of the source, its headers and the flags, so editing
+    any of them builds anew."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources(name):
+        h.update(f.encode() + b"\0" + (CSRC_DIR / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

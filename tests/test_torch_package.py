@@ -28,6 +28,7 @@ def test_import_leaves_jax_out():
             "import ray_tracer_tpu_torch.ops.closest_hit\n"
             "import ray_tracer_tpu_torch.ops.scatter_rows\n"
             "import ray_tracer_tpu_torch.ops.anyhit\n"
+            "import ray_tracer_tpu_torch.ops.blocked_hit\n"
             "import ray_tracer_tpu_torch.lights\n"
             "import ray_tracer_tpu_torch.grad.inverse\n"
             "import ray_tracer_tpu_torch.utils.build\n"
@@ -129,9 +130,28 @@ def test_kernel_build_is_keyed_by_source_inside_the_repo():
 
 def test_each_kernel_builds_into_its_own_library():
     libs = {build.library_path(n)
-            for n in ("closest_hit", "scatter_rows", "anyhit")}
-    assert len(libs) == 3
+            for n in ("closest_hit", "scatter_rows", "anyhit", "blocked_hit")}
+    assert len(libs) == 4
     assert all(p.parent == build.BUILD_DIR for p in libs)
+
+
+def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """Editing a header that a source includes (directly or through
+    another header) gives the source a new library; the shared header of
+    the ray-query kernels is found."""
+    assert build.sources("blocked_hit") == ["blocked_hit.cu",
+                                            "hit_common.cuh"]
+    assert "hit_common.cuh" in build.sources("closest_hit")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <math.h>\n')
+    (tmp_path / "a.cuh").write_text('  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    (tmp_path / "lone.cu").write_text("// no headers\n")
+    assert build.sources("k") == ["a.cuh", "b.cuh", "k.cu"]
+    before = (build.library_path("k"), build.library_path("lone"))
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert build.library_path("k") != before[0]
+    assert build.library_path("lone") == before[1]
 
 
 def test_image_io_matches_reference(tmp_path):
