@@ -17,7 +17,15 @@ Phases, each printing one line (phase 1 one per kernel):
      half of them dead), both want_attrs variants: at most 2 id mismatches
      per scene, t and rows bit-equal where ids agree, dead and miss lanes
      (inf, 0, zero row); then both timed at the main path's shape (the
-     1920x1080 primary wavefront on terrain);
+     1920x1080 primary wavefront on terrain), the kernel through its
+     wrapper with the scene's planes cached (what a render's launch pays)
+     and with the cache cleared before each call (what a training step's
+     first launch pays), with the packing alone, the kernel's shared
+     memory and resident blocks, and its bound from the sphere, super,
+     cluster and triangle tests its rays make (beside the bound of a sweep
+     without supers); then the kernel on the bounce-1 wavefront of a
+     main-path frame, held to the plain version on a 65,536-ray sample and
+     timed on the whole wavefront;
   3. the main path: ``render_progressive`` of the terrain scene (15,842
      triangles, three spheres) at 1920x1080, bounces=3, rpp=1, skybox,
      coherent scatter with the 512-ray share tile, 8 frames, backend
@@ -26,15 +34,16 @@ Phases, each printing one line (phase 1 one per kernel):
      finite and not constant; segments/s timed with CUDA events after a
      warm-up frame (median and best of 5 renders); no other kernel may
      launch on this forward path (the scene is below the streaming
-     kernel's crossover);
+     kernel's crossover), and the render must not pack the scene's planes
+     again (the warm-up frame packed them; so in phases 7 and 8);
   2b. (run before 3) the scatter-add kernel vs its plain version
      (``index_add_``) on the card, on the 1080p terrain primary
      wavefront's winner ids in the blocked pixel order (misses routed to
      the dropped id) with seeded random cotangents (26, R): all lanes,
      about 5% of lanes live, no lane live, and the row-major (R, 26) form;
      each entry within 1e-5 of the plain value plus 1e-6 of the sum of
-     |g| over the lanes it adds up; kernel and plain ms at 1080p, and
-     whether two kernel runs were bit-equal;
+     |g| over the lanes it adds up; kernel (both forms) and plain ms at
+     1080p, and whether two kernel runs were bit-equal;
   2c. (run before 3) the any-hit kernel vs its plain version on the card:
      65,536 shadow segments on each of room, metal, random_balls, terrain
      and terrain_nee (terrain plus a 2-triangle light quad and a small
@@ -51,8 +60,11 @@ Phases, each printing one line (phase 1 one per kernel):
      timed on terrain190k's 65,536 rays; then the streaming kernel against
      the closest-hit kernel on the 1080p primary wavefronts of terrain190k
      and of the 16k terrain (at most 2 mismatches, bit-equal elsewhere),
-     both timed, with the streaming kernel's bound from the block, cluster
-     and triangle tests its rays make; and the any-hit kernel against the
+     both timed as in phase 2 (cache warm, cleared, packing alone), with
+     the streaming kernel's bound from the block, super, cluster and
+     triangle tests its warps make (beside the bound of a ray-per-thread
+     traversal without supers); the streaming kernel on terrain190k's
+     bounce-1 wavefront as in phase 2; and the any-hit kernel against the
      streaming kernel without rows on terrain190k_nee's 1080p bounce-0
      shadow wavefront (at most 2 mismatches), both timed;
   4. path parity: one 256x144 frame through the kernel and through the
@@ -67,7 +79,9 @@ Phases, each printing one line (phase 1 one per kernel):
      towards the same frame of the true scene; one warm-up step and 5
      timed steps. Each step
      must launch the closest-hit and the scatter-add kernel bounces + 1
-     times each, every gradient must be finite, tri_v0's and tri_albedo's
+     times each and pack the scene's planes exactly once (the optimizer
+     moved the scene; so in phase 8), every gradient must be finite,
+     tri_v0's and tri_albedo's
      not all zero, and the last loss below the first. Prints s/step
      (median and spread, CUDA events), forward+backward segments/s, peak
      device memory, and the host's enqueue time against the device time;
@@ -103,8 +117,8 @@ rays its plain version was timed on) and, last, one JSON line
 without that line. ``--profile`` adds measurements: where one main-path
 frame's time goes (torch.profiler), for terrain, for the room scene at
 the same settings and for one NEE frame of terrain_nee, and where one
-training step's time goes. ``--out DIR`` writes 4x-downsampled images
-(``chip_smoke_terrain.npy``, ``chip_smoke_terrain_nee.npy``) and, with
+training step's time goes. ``--out DIR`` writes 4x-downsampled
+images (``chip_smoke_terrain.npy``, ``chip_smoke_terrain_nee.npy``) and, with
 ``--profile``, the profiler tables (``chip_smoke_profile_<name>.txt``)
 into DIR; without it nothing is written. With ``--profile`` phase 8 also
 profiles one forward and one NEE frame of the large scene.
@@ -163,6 +177,7 @@ NEE_VARIANTS = {"nee": dict(nee=True), "nee-nomis": dict(nee=True, mis=False),
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # f32 operations per pair test and per slab test (the kernels' arithmetic)
 OPS_PER_TRIANGLE, OPS_PER_SPHERE, OPS_PER_BOX = 30, 20, 20
+GROUP = 32   # clusters per traversal group (csrc/hit_common.cuh:kGroup)
 # kernel name -> (source, the TPU kernel it replaces); the library is the
 # source's stem
 KERNELS = {
@@ -274,6 +289,27 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def wrapper_ms(fn, scene, reps=20):
+    """A kernel's time through its wrapper ``fn()`` on ``scene`` → (ms with
+    the plane cache warm: what a render's launch pays; ms with the cache
+    cleared before every call: what a training step's first launch pays;
+    ms of packing the scene's planes once)."""
+    fn()
+    warm = cuda_ms(fn, reps)
+
+    def cold():
+        ch.clear_plane_cache()
+        fn()
+
+    cold_ms = cuda_ms(cold, max(reps // 4, 2))
+
+    def pack():
+        ch.clear_plane_cache()
+        ch.scene_planes(scene)
+
+    return warm, cold_ms, cuda_ms(pack, max(reps // 4, 2))
+
+
 def bound(nbytes, ops):
     """The least time (ms) the card could take for a kernel's work: the
     larger of its bytes (each input read once, each output written once)
@@ -285,22 +321,124 @@ def bound(nbytes, ops):
                 bytes=int(nbytes), ops=int(ops))
 
 
-def plane_bytes(scene):
-    """Bytes of the sphere, triangle and cluster-box planes."""
+def plane_bytes(scene, block=None):
+    """Bytes of the planes a closest-hit kernel reads, each input once:
+    spheres, 128 bytes a triangle (the geometry plane repeats columns 0:12
+    of the attribute plane, so a triangle is 48 bytes of geometry and the
+    80 of its other attributes), cluster and super boxes and, with
+    ``block``, the streaming kernel's block boxes."""
+    clusters = -(-scene.num_tris // ch.CLUSTER)
+    boxes = clusters + -(-clusters // ch.SUPER) + (
+        bh.block_layout(scene, block)[2] if block else 0)
+    return 4 * (scene.padded_spheres * 16
+                + scene.padded_tris * 32 + boxes * 8)
+
+
+def anyhit_plane_bytes(scene):
+    """Bytes of the sphere, triangle and cluster-box planes the any-hit
+    kernel reads."""
     return 4 * (scene.padded_spheres * 16 + scene.padded_tris * 32
                 + scene.padded_tris // ch.CLUSTER * 8)
 
 
+def _segments(c0, c1):
+    """The (super, first cluster, end cluster) runs that the traversal core
+    tests between clusters c0 and c1, and the offset from c0 of the group
+    of GROUP clusters each lies in: supers span 8 clusters from cluster 0,
+    groups GROUP clusters from c0."""
+    segs = []
+    for g0 in range(c0, c1, GROUP):
+        g1 = min(g0 + GROUP, c1)
+        for s in range(g0 // ch.SUPER, (g1 - 1) // ch.SUPER + 1):
+            segs.append((s, max(s * ch.SUPER, g0), min((s + 1) * ch.SUPER,
+                                                       g1), g0 - c0))
+    return segs
+
+
+def _hierarchy_work(planes, c0, c1, orr, drr, irr, best, t_min):
+    """What the traversal core (csrc/hit_common.cuh:visit_group) tests for
+    the rays (orr, drr, 1/d irr: (x, y, z) triples of (r, 1) columns) on
+    clusters [c0, c1), from each ray's best so far ``best`` (r,) → (counts,
+    best after). A ray tests every super of every group, the cluster boxes
+    of the supers it enters no farther than its best at the group's start,
+    and the 64 triangles of each cluster it enters no farther than its best
+    over the clusters before it. ``flat_clusters`` and ``strict_pairs`` are
+    what a sweep without supers tests: every cluster box, and the triangles
+    of boxes entered strictly nearer than the best (the closest-hit kernel
+    before it had supers). Brute force: every pair is computed."""
+    r, G = orr[0].shape[0], c1 - c0
+    clu, sup = planes.clu[c0:c1], planes.sup
+    geo = planes.geo[c0 * ch.CLUSTER:c1 * ch.CLUSTER]
+    ctn, ctf = ah._slab_pairs(ch._cols(clu, 0, 3), ch._cols(clu, 3, 6), orr,
+                              irr, t_min)
+    t_t, ok_t = ch._mt_pairs(*(ch._cols(geo, k, k + 3) for k in (0, 3, 6, 9)),
+                             orr, drr, t_min)
+    c_min = torch.where(ok_t, t_t, float("inf")).view(r, G, ch.CLUSTER).amin(2)
+    before = torch.cat([best[:, None], c_min], 1).cummin(1)[0]
+    segs = _segments(c0, c1)
+    s_idx = torch.tensor([s for s, _, _, _ in segs], device=clu.device)
+    s_len = torch.tensor([hi - lo for _, lo, hi, _ in segs],
+                         device=clu.device)
+    s_at = torch.tensor([at for _, _, _, at in segs], device=clu.device)
+    stn, stf = ah._slab_pairs(ch._cols(sup[s_idx], 0, 3),
+                              ch._cols(sup[s_idx], 3, 6), orr, irr, t_min)
+    s_enter = (stf >= stn) & (stn <= before[:, s_at])
+    hit_box = ctf >= ctn
+    counts = dict(
+        supers=r * len(segs), clusters=int((s_enter * s_len).sum()),
+        pairs=ch.CLUSTER * int((hit_box & (ctn <= before[:, :G])).sum()),
+        flat_clusters=r * G,
+        strict_pairs=ch.CLUSTER * int((hit_box & (ctn < before[:, :G])).sum()))
+    return counts, before[:, -1]
+
+
+def _sphere_best(planes, oc, dc, t_min):
+    """Each ray's closest valid sphere hit (inf where none) and the count
+    of valid spheres."""
+    sph = planes.sph
+    sc, (r2,), sv = ch._cols(sph, 0, 3), ch._cols(sph, 3, 4), sph[None, :, 4]
+    a_quad = (dc[0] * dc[0] + dc[1] * dc[1]) + dc[2] * dc[2]
+    t_s, ok_s = ch._sphere_pairs(sc, r2, oc, dc, a_quad, t_min)
+    return (torch.where(ok_s & (sv > 0.5), t_s, float("inf")).amin(1),
+            int((sv > 0.5).sum()))
+
+
+def _columns(x):
+    return tuple(x[:, k:k + 1] for k in range(3))
+
+
 @torch.no_grad()
-def traversal_work(scene, o, d, alive, t_min=1e-4, t_max=None, chunk=2048):
-    """(sphere pairs, cluster boxes, triangle pairs) that the closest-hit
-    kernel (``t_max`` None) or the any-hit kernel tests for these rays, as
-    their loops visit them (measurement only, brute force in chunks of
-    live lanes). Closest hit: every live lane tests every valid sphere and
-    every real cluster box, and the 64 triangles of each box it enters
-    closer than its best so far (the best over the spheres and the
-    clusters before it). Any hit: a lane stops at its first blocking
-    primitive, spheres first, then clusters in ascending order."""
+def traversal_work(scene, o, d, alive, t_min=1e-4, chunk=2048):
+    """What the closest-hit kernel tests for these rays (measurement only,
+    brute force in chunks of live lanes): every live lane tests every valid
+    sphere, then walks the whole hierarchy as ``_hierarchy_work`` counts →
+    dict of sphere pairs, super boxes, cluster boxes, triangle pairs, and
+    the ``flat_clusters`` and ``strict_pairs`` of a sweep without supers."""
+    live = alive.nonzero()[:, 0]
+    o, d = o[live], d[live]
+    planes = ch.scene_planes(scene)
+    total = dict.fromkeys(("spheres", "supers", "clusters", "pairs",
+                           "flat_clusters", "strict_pairs"), 0)
+    for s in range(0, o.shape[0], chunk):
+        oc, dc = _columns(o[s:s + chunk]), _columns(d[s:s + chunk])
+        irr = tuple(1.0 / torch.where(x == 0.0, 1e-30, x) for x in dc)
+        best, n_valid = _sphere_best(planes, oc, dc, t_min)
+        total["spheres"] += n_valid * best.shape[0]
+        if planes.n_clusters:
+            counts, _ = _hierarchy_work(planes, 0, planes.n_clusters, oc, dc,
+                                        irr, best, t_min)
+            for k, v in counts.items():
+                total[k] += v
+    return total
+
+
+@torch.no_grad()
+def anyhit_work(scene, o, d, alive, t_min, t_max, chunk=2048):
+    """(sphere pairs, cluster boxes, triangle pairs) that the any-hit
+    kernel tests for these rays, as its loop visits them (measurement only,
+    brute force in chunks of live lanes): a lane stops at its first
+    blocking primitive, spheres first, then clusters in ascending order,
+    the 64 triangles of each box its segment enters."""
     live = alive.nonzero()[:, 0]
     o, d = o[live], d[live]
     sph, tri = ch._pack_spheres(scene), ch._pack_tris(scene)
@@ -316,118 +454,110 @@ def traversal_work(scene, o, d, alive, t_min=1e-4, t_max=None, chunk=2048):
     seen_valid = sv.cumsum(1)[0]          # valid spheres up to each index
     totals = torch.zeros(3, dtype=torch.float64, device=o.device)
     for s in range(0, o.shape[0], chunk):
-        oc = tuple(o[s:s + chunk, k:k + 1] for k in range(3))
-        dc = tuple(d[s:s + chunk, k:k + 1] for k in range(3))
-        r = oc[0].shape[0]
+        oc, dc = _columns(o[s:s + chunk]), _columns(d[s:s + chunk])
         a_quad = (dc[0] * dc[0] + dc[1] * dc[1]) + dc[2] * dc[2]
         t_s, ok_s = ch._sphere_pairs(sc, r2, oc, dc, a_quad, t_min)
-        ok_s = ok_s & sv
         invd = tuple(1.0 / torch.where(x == 0.0, 1e-30, x) for x in dc)
         tn, tf = ah._slab_pairs(lo, hi, oc, invd, t_min)
         t_t, ok_t = ch._mt_pairs(ta, te1, te2, tn_, oc, dc, t_min)
-        if t_max is None:
-            best_s = torch.where(ok_s, t_s, float("inf")).amin(1)
-            c_min = torch.where(ok_t, t_t, float("inf")).view(
-                r, C, ch.CLUSTER).amin(2)
-            before = torch.cat([best_s[:, None], c_min], 1).cummin(1)[0]
-            entered = (tf >= tn) & (tn < before[:, :C])
-            work = (n_valid * r, C * r, ch.CLUSTER * entered.sum())
-        else:
-            blk_s = ok_s & (t_s < t_max)
-            by_sphere = blk_s.any(1)
-            spheres = torch.where(by_sphere,
-                                  seen_valid[blk_s.int().argmax(1)], n_valid)
-            enter = (tf >= tn) & (tn < t_max)
-            blk_t = ok_t & (t_t < t_max) & enter.repeat_interleave(
-                ch.CLUSTER, 1)
-            by_tri = blk_t.any(1)
-            first = blk_t.int().argmax(1)
-            fc = first // ch.CLUSTER
-            boxes = torch.where(by_tri, fc + 1, C)
-            pairs = torch.where(
-                by_tri, ch.CLUSTER * (enter & (cid < fc[:, None])).sum(1)
-                + first % ch.CLUSTER + 1, ch.CLUSTER * enter.sum(1))
-            work = (spheres.sum(), torch.where(by_sphere, 0, boxes).sum(),
-                    torch.where(by_sphere, 0, pairs).sum())
-        totals += torch.stack([torch.as_tensor(w, dtype=torch.float64,
-                                               device=o.device)
-                               for w in work])
-    return [int(x) for x in totals.tolist()]
+        blk_s = ok_s & sv & (t_s < t_max)
+        by_sphere = blk_s.any(1)
+        spheres = torch.where(by_sphere,
+                              seen_valid[blk_s.int().argmax(1)], n_valid)
+        enter = (tf >= tn) & (tn < t_max)
+        blk_t = ok_t & (t_t < t_max) & enter.repeat_interleave(
+            ch.CLUSTER, 1)
+        by_tri = blk_t.any(1)
+        first = blk_t.int().argmax(1)
+        fc = first // ch.CLUSTER
+        boxes = torch.where(by_tri, fc + 1, C)
+        pairs = torch.where(
+            by_tri, ch.CLUSTER * (enter & (cid < fc[:, None])).sum(1)
+            + first % ch.CLUSTER + 1, ch.CLUSTER * enter.sum(1))
+        totals += torch.stack([spheres.sum(),
+                               torch.where(by_sphere, 0, boxes).sum(),
+                               torch.where(by_sphere, 0, pairs).sum()]
+                              ).to(torch.float64)
+    spheres, boxes, pairs = (int(x) for x in totals.tolist())
+    return dict(spheres=spheres, clusters=boxes, pairs=pairs)
 
 
-def work_bound(nbytes, work):
-    """bound() of a traversal's bytes and its counted pair and box tests."""
-    spheres, boxes, pairs = work
-    return bound(nbytes, OPS_PER_SPHERE * spheres + OPS_PER_BOX * boxes
-                 + OPS_PER_TRIANGLE * pairs)
+def work_bound(nbytes, work, supers=True):
+    """bound() of a traversal's bytes and its counted sphere, box (block,
+    super, cluster) and triangle tests; without ``supers`` the bound of the
+    same rays' sweep without that level (``flat_clusters`` and
+    ``strict_pairs`` where the count has them)."""
+    if supers:
+        boxes = (work.get("blocks", 0) + work.get("supers", 0)
+                 + work["clusters"])
+        pairs = work["pairs"]
+    else:
+        boxes = work.get("blocks", 0) + work["flat_clusters"]
+        pairs = work.get("strict_pairs", work["pairs"])
+    return bound(nbytes, OPS_PER_SPHERE * work["spheres"]
+                 + OPS_PER_BOX * boxes + OPS_PER_TRIANGLE * pairs)
 
 
 @torch.no_grad()
 def blocked_traversal_work(scene, o, d, alive, t_min=1e-4, block=bh.BLOCK,
-                           chunk=2048):
-    """(sphere pairs, block boxes, cluster boxes, triangle pairs) that the
-    streaming kernel tests for these rays, as its loops visit them
-    (measurement only). Every live lane tests every valid sphere and every
-    real block box; it visits the blocks it enters no farther than its
-    spheres' best, nearest first, while the next one starts no farther than
-    its best so far; in each it tests every real cluster box, and the 64
-    triangles of each box it enters no farther than its best over the
-    spheres and the clusters before it (as ``traversal_work``). The
-    triangle tests run per block, on the lanes that visit it."""
-    live = alive.nonzero()[:, 0]
-    o, d = o[live], d[live]
-    n = o.shape[0]
+                           warp=32, chunk=2048):
+    """What the streaming kernel tests for these rays, as its loops visit
+    them (measurement only) → dict of sphere pairs, block boxes, super
+    boxes, cluster boxes and triangle pairs. Every live lane tests every
+    valid sphere and every real block box. The lanes of a warp (``warp``
+    consecutive rays) visit blocks together, in the order of each block's
+    nearest entry over the warp's lanes, while that entry is no farther
+    than the farthest best of the warp's live lanes; a lane takes part in
+    a block it enters no farther than its best so far, and tests there
+    what ``_hierarchy_work`` counts. ``warp=1`` gives every lane its own
+    order, and with ``flat_clusters`` the count of a ray-per-thread
+    traversal without supers. The triangle tests run per block, on the
+    lanes that take part."""
+    n = -(-o.shape[0] // warp) * warp
+    pad = n - o.shape[0]
+    o = torch.cat([o, o.new_zeros((pad, 3))])
+    d = torch.cat([d, d.new_ones((pad, 3))])
+    alive = torch.cat([alive, alive.new_zeros(pad)])
     G, C, NB = bh.block_layout(scene, block)
-    sph, tri = ch._pack_spheres(scene), ch._pack_tris(scene)
-    clu = ch._cluster_aabbs(scene)[:C]
-    blk = bh._block_aabbs(clu, G)
-    sc, (r2,), sv = ch._cols(sph, 0, 3), ch._cols(sph, 3, 4), sph[None, :, 4]
-    sv = sv > 0.5
-    oc = tuple(o[:, k:k + 1] for k in range(3))                    # (n, 1)
-    dc = tuple(d[:, k:k + 1] for k in range(3))
+    planes = ch.scene_planes(scene)
+    blk = planes.block_boxes(G)
+    oc, dc = _columns(o), _columns(d)
     invd = tuple(1.0 / torch.where(x == 0.0, 1e-30, x) for x in dc)
     best = torch.empty(n, device=o.device)
     for s in range(0, n, 32 * chunk):
-        osl = tuple(x[s:s + 32 * chunk] for x in oc)
-        dsl = tuple(x[s:s + 32 * chunk] for x in dc)
-        a_quad = (dsl[0] * dsl[0] + dsl[1] * dsl[1]) + dsl[2] * dsl[2]
-        t_s, ok_s = ch._sphere_pairs(sc, r2, osl, dsl, a_quad, t_min)
-        best[s:s + 32 * chunk] = torch.where(ok_s & sv, t_s,
-                                             float("inf")).amin(1)
+        cut = slice(s, s + 32 * chunk)
+        best[cut], n_valid = _sphere_best(planes, tuple(x[cut] for x in oc),
+                                          tuple(x[cut] for x in dc), t_min)
+    best = torch.where(alive, best, -float("inf"))   # a dead lane enters none
     tn, tf = ah._slab_pairs(ch._cols(blk, 0, 3), ch._cols(blk, 3, 6), oc,
                             invd, t_min)                          # (n, NB)
-    key = torch.where((tf >= tn) & (tn <= best[:, None]), tn, float("inf"))
-    key, order = torch.sort(key, dim=1, stable=True)
-    del tn, tf
-    lo, hi = ch._cols(clu, 0, 3), ch._cols(clu, 3, 6)
-    planes = [ch._cols(tri, k, k + 3) for k in (0, 3, 6, 9)]
-    clusters = pairs = 0
+    inside = tf >= tn
+    key = torch.where(inside & (tn <= best[:, None]), tn, float("inf"))
+    key, order = torch.sort(key.view(-1, warp, NB).amin(1), dim=1,
+                            stable=True)                     # (n / warp, NB)
+    del tf
+    total = dict(spheres=n_valid * int(alive.sum()),
+                 blocks=NB * int(alive.sum()), supers=0, clusters=0, pairs=0,
+                 flat_clusters=0)
     for k in range(NB):
-        visit = torch.isfinite(key[:, k]) & (key[:, k] <= best)
-        if not bool(visit.any()):
+        farthest = best.view(-1, warp).amax(1)
+        go = torch.isfinite(key[:, k]) & (key[:, k] <= farthest)
+        if not bool(go.any()):
             break
+        go = go.repeat_interleave(warp)
+        at = order[:, k].repeat_interleave(warp)
         for b in range(NB):
-            lanes = (visit & (order[:, k] == b)).nonzero()[:, 0]
-            c0, c1 = b * G, min((b + 1) * G, C)
-            cut = (slice(None), slice(c0, c1))
-            tcut = (slice(None), slice(c0 * ch.CLUSTER, c1 * ch.CLUSTER))
+            lanes = (go & (at == b) & inside[:, b]
+                     & (tn[:, b] <= best)).nonzero()[:, 0]
             for s in range(0, lanes.numel(), chunk):
                 r = lanes[s:s + chunk]
-                orr, drr, irr = (tuple(x[r] for x in v)
-                                 for v in (oc, dc, invd))
-                ctn, ctf = ah._slab_pairs(tuple(x[cut] for x in lo),
-                                          tuple(x[cut] for x in hi), orr,
-                                          irr, t_min)
-                t_t, ok_t = ch._mt_pairs(*(tuple(x[tcut] for x in p)
-                                           for p in planes), orr, drr, t_min)
-                c_min = torch.where(ok_t, t_t, float("inf")).view(
-                    r.numel(), c1 - c0, ch.CLUSTER).amin(2)
-                before = torch.cat([best[r, None], c_min], 1).cummin(1)[0]
-                entered = (ctf >= ctn) & (ctn <= before[:, :c1 - c0])
-                clusters += r.numel() * (c1 - c0)
-                pairs += ch.CLUSTER * int(entered.sum())
-                best[r] = before[:, -1]
-    return [int(sv.sum()) * n, n * NB, clusters, pairs]
+                counts, best[r] = _hierarchy_work(
+                    planes, b * G, min((b + 1) * G, C),
+                    *(tuple(x[r] for x in v) for v in (oc, dc, invd)),
+                    best[r], t_min)
+                for name in ("supers", "clusters", "pairs", "flat_clusters"):
+                    total[name] += counts[name]
+    return total
 
 
 def phase0_device():
@@ -549,18 +679,33 @@ def phase2_kernel_vs_plain(device, terrain):
     mism, err, hits = compare(got, ref, alive, "terrain 1080p primary")
     max_err = max(max_err, err)
     del got, ref
-    ms = cuda_ms(lambda: ch.nearest_hit_attrs(scene, o, d, 1e-4, alive), 20)
+    ms, cold_ms, pack_ms = wrapper_ms(
+        lambda: ch.nearest_hit_attrs(scene, o, d, 1e-4, alive), scene)
     plain_ms = cuda_ms(lambda: ch.nearest_hit_attrs_reference(
         scene, o, d, 1e-4, alive), 1)
-    # rays (7 f32) in; t, id and the 26-column row out; the planes once
+    # rays (o, d, alive: 25 bytes) in; t, id and the 26-column row out; the
+    # sphere, geometry, attribute and box planes once
     work = traversal_work(scene, o, d, alive)
-    b = work_bound(W * H * 4 * (7 + 2 + 26) + plane_bytes(scene), work)
+    nbytes = W * H * (25 + 4 * (2 + 26)) + plane_bytes(scene)
+    b, flat = work_bound(nbytes, work), work_bound(nbytes, work, False)
+    lib, planes = ch._library(), ch.scene_planes(scene)
+    shape = (planes.n_clusters, planes.sup.shape[0])
     print(f"phase 2 main-path shape (terrain, {W}x{H} primary rays, "
-          f"{hits} hits, {mism} mism): kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, max |dt| {err}; tested {work[0]} sphere "
-          f"pairs, {work[1]} boxes, {work[2]} triangle pairs: bound "
-          f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} B, "
-          f"{b['ops']} f32 ops)", flush=True)
+          f"{hits} hits, {mism} mism): kernel {ms:.3f} ms with the plane "
+          f"cache warm, {cold_ms:.3f} ms with it cleared before each call "
+          f"(packing alone {pack_ms:.3f} ms), plain {plain_ms:.3f} ms, max "
+          f"|dt| {err}; {lib.rtt_closest_hit_shared_bytes(*shape)} B of "
+          f"shared memory a block, "
+          f"{lib.rtt_closest_hit_blocks_per_sm(*shape, 1)} blocks an SM; "
+          f"tested {work['spheres']} sphere pairs, {work['supers']} super "
+          f"boxes, {work['clusters']} cluster boxes, {work['pairs']} "
+          f"triangle pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"({b['bytes']} B, {b['ops']} f32 ops); a sweep without supers "
+          f"{work['flat_clusters']} boxes, {work['strict_pairs']} pairs: "
+          f"bound {flat['bound_ms']:.4f} ms", flush=True)
+    print("phase 2 secondary rays: " + secondary_check(
+        "closest-hit on terrain", scene, cam, ch.nearest_hit_attrs,
+        ch.nearest_hit_attrs_reference, device), flush=True)
     return dict(ms=ms, plain_ms=plain_ms, plain_rays=W * H,
                 max_abs_err=max_err, mismatches=mism, library_ms=None, **b)
 
@@ -590,19 +735,25 @@ def rate_text(runs, segs):
 
 
 def render_path(label, scene, cam, params, want):
-    """One path's render, checked: a warm-up frame, every launch count to
-    0, ``render_progressive`` of FRAMES frames, the counts held to
-    ``want``, the image finite (H, W, 3) and not constant; then TRIALS - 1
+    """One path's render, checked: a warm-up frame (which packs the
+    scene's planes), every launch count to 0, ``render_progressive`` of
+    FRAMES frames, the counts held to ``want`` and the planes packed no
+    further time, the image finite (H, W, 3) and not constant; then TRIALS - 1
     more timed renders → (image, counts, device seconds of each render,
     host seconds to enqueue the first)."""
     basis = rt.camera_basis(cam)
     render_frame(scene, basis, params, 0)            # warm-up frame
     torch.cuda.synchronize()
     reset_counts()
+    packs = ch.scene_planes.packs
     img, secs, enqueue_s = timed_render(scene, basis, params, FRAMES)
     counts = read_counts()
     if counts != want:
         raise AssertionError(f"{label}: kernel launches {counts} != {want}")
+    if ch.scene_planes.packs != packs:
+        raise AssertionError(f"{label}: a render of a scene already packed "
+                             f"packed its planes "
+                             f"{ch.scene_planes.packs - packs} times")
     if img.shape != (H, W, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"{label} image is not finite (H, W, 3)")
     if float(img.std()) < 1e-3:
@@ -769,6 +920,8 @@ def phase2b_scatter_vs_plain(device, terrain):
     bit_equal = torch.equal(again[0], again[1])
     del again
     ms = cuda_ms(lambda: sc.scatter_rows_soa(ids, g, n_rows), 20)
+    g_rows = cases["row-major"][2]
+    row_major_ms = cuda_ms(lambda: sc.scatter_rows(ids, g_rows, n_rows), 20)
     plain_ms = cuda_ms(lambda: sc.scatter_rows_soa_reference(ids, g, n_rows),
                        5)
     # the library call: one index_add_ over every lane into n_rows + 1
@@ -780,7 +933,8 @@ def phase2b_scatter_vs_plain(device, terrain):
     b = bound(R * 4 * (1 + 26) + n_rows * 26 * 4, live * 26)
     print(f"phase 2b scatter-add vs plain (terrain {W}x{H} primary winners, "
           f"{n_rows} rows x 26): " + "; ".join(report)
-          + f" | dense 1080p: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          + f" | dense 1080p: kernel {ms:.3f} ms (its row-major form "
+          f"{row_major_ms:.3f} ms), plain {plain_ms:.3f} ms, "
           f"index_add_ {library_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by "
           f"{b['bound_by']}; two kernel runs bit-equal: {bit_equal}",
           flush=True)
@@ -810,6 +964,43 @@ def shadow_segments(scene, cam, n, seed, device):
         seg = p.mean(0) + spread.to(device) - p
     alive = torch.from_numpy(g.random(n) < 0.5).to(device)
     return p.contiguous(), seg.contiguous(), alive
+
+
+def wavefront(scene, cam, params, seg):
+    """The closest-hit query of segment ``seg`` of one frame of the path:
+    (o, d, alive) as ``renderer.trace`` hands them to ``intersect``
+    (segment 1 is the first wavefront of secondary rays)."""
+    seen, real = [], renderer.intersect
+
+    def spy(scene, o, d, t_min, backend, alive):
+        seen.append((o, d, alive))
+        return real(scene, o, d, t_min=t_min, backend=backend, alive=alive)
+
+    renderer.intersect = spy
+    try:
+        render_frame(scene, rt.camera_basis(cam), params, 0)
+    finally:
+        renderer.intersect = real
+    return tuple(x.detach().contiguous() for x in seen[seg])
+
+
+def secondary_check(label, scene, cam, hit, plain, device):
+    """Kernel wrapper ``hit`` on the bounce-1 wavefront of one main-path
+    frame of ``scene``: held to ``plain`` on a PROBE_RAYS-ray sample
+    (``compare``'s gates), then timed on the whole wavefront → text."""
+    o, d, alive = wavefront(scene, cam, rt.RenderParams(**PARAMS), 1)
+    pick = torch.from_numpy(np.random.default_rng(5).choice(
+        o.shape[0], PROBE_RAYS, replace=False)).to(device)
+    got = hit(scene, o[pick], d[pick], 1e-4, alive[pick])
+    ref = plain(scene, o[pick], d[pick], 1e-4, alive[pick])
+    torch.cuda.synchronize()
+    mism, err, hits = compare(got, ref, alive[pick], f"{label} bounce 1")
+    if err:
+        raise AssertionError(f"{label} bounce 1: max |dt| {err}")
+    ms = cuda_ms(lambda: hit(scene, o, d, 1e-4, alive), 20)
+    return (f"{label} bounce-1 wavefront ({int(alive.sum())} of "
+            f"{o.shape[0]} lanes live; {PROBE_RAYS}-ray sample vs plain "
+            f"{mism} mism, {hits} hits, max |dt| {err}): kernel {ms:.3f} ms")
 
 
 def first_shadow_wavefront(scene, cam, params):
@@ -864,14 +1055,16 @@ def phase2c_anyhit_vs_plain(device, terrain, terrain_nee):
                              f"mismatches")
     ms = cuda_ms(lambda: ah.anyhit(*args), 20)
     plain_ms = cuda_ms(lambda: ah.anyhit_reference(*args), 1)
-    work = traversal_work(scene, o, d, alive, t_min, t_max)
+    work = anyhit_work(scene, o, d, alive, t_min, t_max)
     # rays (7 f32) in, one bool out; the planes once
-    b = work_bound(o.shape[0] * (7 * 4 + 1) + plane_bytes(scene), work)
+    b = work_bound(o.shape[0] * (7 * 4 + 1) + anyhit_plane_bytes(scene),
+                   work)
     print(f"phase 2c main-path shape (terrain_nee {W}x{H} bounce-0 shadow "
           f"rays, {int(alive.sum())} live, {int(got.sum())} blocked, {mism} "
           f"mism): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; tested "
-          f"{work[0]} sphere pairs, {work[1]} boxes, {work[2]} triangle "
-          f"pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"{work['spheres']} sphere pairs, {work['clusters']} boxes, "
+          f"{work['pairs']} triangle pairs: bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']} "
           f"({b['bytes']} B, {b['ops']} f32 ops)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, plain_rays=o.shape[0],
                 max_abs_err=0.0, mismatches=mism, library_ms=None, **b)
@@ -883,7 +1076,8 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
     ALBEDO_START towards frame 0 of the true scene; one warm-up step and
     ``steps`` timed steps, each driven with every launch count at 0 and
     held to bounces + 1 launches of the ``hit`` kernel and of the
-    scatter-add; gradients finite, tri_v0's and tri_albedo's not all zero,
+    scatter-add and to one packing of the scene's planes (the optimizer
+    moved the scene); gradients finite, tri_v0's and tri_albedo's not all zero,
     the last loss below the first → (line, the launches summed over all
     steps)."""
     params = rt.RenderParams(**PARAMS)
@@ -902,6 +1096,7 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
     torch.cuda.reset_peak_memory_stats()
     for step in range(1 + steps):                   # step 0 warms up
         reset_counts()
+        packs = ch.scene_planes.packs
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -915,6 +1110,11 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
         if counts != per_step:
             raise AssertionError(f"{label} step {step}: launches {counts}, "
                                  f"want {per_step}")
+        if ch.scene_planes.packs != packs + 1:
+            raise AssertionError(
+                f"{label} step {step}: the optimizer moved the scene, so the "
+                f"step must pack its planes once; it packed "
+                f"{ch.scene_planes.packs - packs} times")
         totals = {k: totals[k] + counts[k] for k in totals}
         losses.append(float(loss))
         if step:
@@ -1155,32 +1355,48 @@ def phase2d_blocked_vs_plain(device, terrain, large, large_nee):
                                   f"streaming vs closest-hit kernel")
         max_err = max(max_err, err)
         del got, ref
-        b4_ms = cuda_ms(lambda: bh.nearest_hit_blocked(
-            scene, o, d, 1e-4, alive), 20)
-        b1_ms = cuda_ms(lambda: ch.nearest_hit_attrs(
-            scene, o, d, 1e-4, alive), 10)
-        side[name] = dict(mism=mism, hits=hits, b4_ms=b4_ms, b1_ms=b1_ms)
-    # o, d are terrain190k's; rays (7 f32) in, t, id and the 26-column row
-    # out; the sphere, triangle, cluster and block planes once
+        b4 = wrapper_ms(lambda: bh.nearest_hit_blocked(
+            scene, o, d, 1e-4, alive), scene)
+        b1 = wrapper_ms(lambda: ch.nearest_hit_attrs(
+            scene, o, d, 1e-4, alive), scene, 10)
+        side[name] = dict(mism=mism, hits=hits, b4=b4, b1=b1)
+    # o, d are terrain190k's; rays (o, d, alive: 25 bytes) in, t, id and the
+    # 26-column row out; the sphere, geometry, attribute and box planes once
+    nbytes = W * H * (25 + 4 * (2 + 26)) + plane_bytes(scene, bh.BLOCK)
     work = blocked_traversal_work(scene, o, d, alive)
-    b = bound(W * H * 4 * (7 + 2 + 26) + plane_bytes(scene)
-              + bh.block_layout(scene)[2] * 8 * 4,
-              OPS_PER_SPHERE * work[0] + OPS_PER_BOX * (work[1] + work[2])
-              + OPS_PER_TRIANGLE * work[3])
-    # the closest-hit kernel tests every real cluster box of every live ray
-    b1_floor = bound(0, OPS_PER_BOX * W * H * -(-scene.num_tris
-                                                // ch.CLUSTER))
+    b = work_bound(nbytes, work)
+    # a ray-per-thread traversal without supers, every lane in its own order
+    lone = blocked_traversal_work(scene, o, d, alive, warp=1)
+    flat = work_bound(nbytes, lone, False)
+    # the closest-hit kernel sweeps every super for every live ray (it swept
+    # every cluster box before it had supers)
+    planes = ch.scene_planes(scene)
+    b1_supers = W * H * planes.sup.shape[0]
+    b1_floor = bound(0, OPS_PER_BOX * b1_supers)
+    lib = bh._library()
     print(f"phase 2d main-path shape ({W}x{H} primary rays, blocked pixel "
-          f"order): " + "; ".join(
+          f"order; ms with the plane cache warm / cleared before each call "
+          f"/ packing alone): " + "; ".join(
               f"{k} ({v['hits']} hits, {v['mism']} mism) streaming "
-              f"{v['b4_ms']:.3f} ms vs closest-hit {v['b1_ms']:.3f} ms"
+              + " / ".join(f"{x:.3f}" for x in v["b4"]) + " ms vs closest-hit "
+              + " / ".join(f"{x:.3f}" for x in v["b1"]) + " ms"
               for k, v in side.items())
-          + f" | terrain190k streaming: tested {work[0]} sphere pairs, "
-          f"{work[1]} block boxes, {work[2]} cluster boxes, {work[3]} "
+          + f" | streaming kernel: {lib.rtt_blocked_hit_shared_bytes()} B of "
+          f"shared memory a block, {lib.rtt_blocked_hit_blocks_per_sm(1)} "
+          f"blocks an SM | terrain190k streaming: tested {work['spheres']} "
+          f"sphere pairs, {work['blocks']} block boxes, {work['supers']} "
+          f"super boxes, {work['clusters']} cluster boxes, {work['pairs']} "
           f"triangle pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-          f"({b['bytes']} B, {b['ops']} f32 ops); closest-hit's box tests "
-          f"alone {b1_floor['ops']} f32 ops, {b1_floor['bound_ms']:.4f} ms",
+          f"({b['bytes']} B, {b['ops']} f32 ops); a ray-per-thread traversal "
+          f"without supers {lone['flat_clusters']} cluster boxes, "
+          f"{lone['pairs']} pairs: bound {flat['bound_ms']:.4f} ms; "
+          f"closest-hit on these rays sweeps {planes.sup.shape[0]} supers a "
+          f"ray ({planes.n_clusters} cluster boxes a ray before it had "
+          f"supers): {b1_supers} boxes, {b1_floor['bound_ms']:.4f} ms",
           flush=True)
+    print("phase 2d secondary rays: " + secondary_check(
+        "streaming on terrain190k", *large, bh.nearest_hit_blocked,
+        bh.nearest_hit_blocked_reference, device), flush=True)
 
     # terrain190k_nee's 1080p bounce-0 shadow wavefront: any-hit vs the
     # streaming kernel without rows (the large-scene path's shadow query)
@@ -1201,7 +1417,7 @@ def phase2d_blocked_vs_plain(device, terrain, large, large_nee):
           f"{int(alive.sum())} live, {int(b4.sum())} blocked): any-hit vs "
           f"streaming without rows {mism} mism; any-hit {b3_ms:.3f} ms, "
           f"streaming {b4_ms:.3f} ms", flush=True)
-    return dict(ms=side["terrain190k"]["b4_ms"], plain_ms=plain_ms,
+    return dict(ms=side["terrain190k"]["b4"][0], plain_ms=plain_ms,
                 plain_rays=PROBE_RAYS, max_abs_err=max_err,
                 mismatches=side["terrain190k"]["mism"], library_ms=None, **b)
 

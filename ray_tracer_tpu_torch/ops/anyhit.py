@@ -32,8 +32,8 @@ import torch
 from ..scene import Scene
 from . import intersect
 from .closest_hit import (CLUSTER, _check_inputs, _cluster_aabbs, _cols,
-                          _mt_pairs, _pack_spheres, _pack_tris, _rays_soa,
-                          _sphere_pairs)
+                          _mt_pairs, _pack_spheres, _pack_tris,
+                          _sphere_pairs, scene_planes)
 
 # end of the shadow segment, in units of |d|: stops short of the light's
 # own surface (the reference's occluded)
@@ -104,13 +104,25 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _rays_soa(o, d, alive):
+    """The kernel's (7, R) float32 ray block: rows ox oy oz dx dy dz and
+    alive (1.0 or 0.0), detached."""
+    rays = torch.empty((7, o.shape[0]), dtype=torch.float32, device=o.device)
+    rays[0:3] = o.detach().T
+    rays[3:6] = d.detach().T
+    rays[6] = 1.0 if alive is None else alive.to(torch.float32)
+    return rays
+
+
 def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
     """True where some primitive is hit with t in ``[t_min, t_max)`` along
     o + t·d → (R,) bool; dead lanes False.
 
     CUDA tensors launch the kernel (built at first use); CPU tensors take
     the plain version; any other device, or input the kernel does not
-    take, raises. Nothing falls back silently."""
+    take, raises. Nothing falls back silently. The scene's packed planes
+    come from ``closest_hit.scene_planes``' cache, under its contract: a scene tensor
+    written behind autograd's back needs ``clear_plane_cache()``."""
     if o.device.type == "cpu":
         return anyhit_reference(scene, o, d, t_min, t_max, alive)
     if o.device.type != "cuda":
@@ -122,15 +134,13 @@ def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
         return out
     lib = _library()
     rays = _rays_soa(o, d, alive)
-    with torch.no_grad():  # the planes are kernel input, not graph nodes
-        sph, tri = _pack_spheres(scene), _pack_tris(scene)
-        clu = _cluster_aabbs(scene)
-    n_clusters = -(-scene.num_tris // CLUSTER)
+    planes = scene_planes(scene)   # packed once per scene (closest_hit.py)
     with torch.cuda.device(dev):
         err = lib.rtt_anyhit(
-            rays.data_ptr(), R, sph.data_ptr(), scene.padded_spheres,
-            int(scene.num_spheres > 0), tri.data_ptr(), clu.data_ptr(),
-            n_clusters, float(t_min), float(t_max), out.data_ptr(),
+            rays.data_ptr(), R, planes.sph.data_ptr(), scene.padded_spheres,
+            int(scene.num_spheres > 0), planes.tri.data_ptr(),
+            planes.clu.data_ptr(), planes.n_clusters, float(t_min),
+            float(t_max), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("any-hit kernel launch failed: "

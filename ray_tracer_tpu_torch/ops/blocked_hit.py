@@ -6,8 +6,9 @@ Port of the streaming (tri-blocked) closest-hit kernel of
 ``ray_tracer_tpu/ops/pallas_intersect.py`` (``_make_blocked_kernel``,
 ``_block_lists`` and ``_nearest_hit_blocked_call``). It computes what the
 closest-hit kernel (``closest_hit.py``) computes, with the same inputs,
-outputs and tie rule (the lowest id wins), over a three-level hierarchy:
-blocks of ``BLOCK`` triangles, 64-triangle clusters, triangles.
+outputs and tie rule (the lowest id wins), over a four-level hierarchy:
+blocks of ``BLOCK`` triangles, supers of 8 clusters, 64-triangle clusters,
+triangles. The packed planes come from ``closest_hit.scene_planes``.
 
   * ``uses_blocked`` — the reference's default crossover: scenes past it
     take this kernel, the others the closest-hit kernel.
@@ -27,14 +28,13 @@ import functools
 import torch
 
 from ..scene import Scene
-from .closest_hit import (CLUSTER, REFERENCE_CHUNK, _check_inputs,
-                          _cluster_aabbs, _cols, _copy_map_tensor, _mt_pairs,
-                          _pack_spheres, _pack_tris, _plain_result, _rays_soa,
-                          _sphere_pairs)
-from .intersect import merged_width
+from .closest_hit import (CLUSTER, REFERENCE_CHUNK, _check_inputs, _cols,
+                          _copy_map_tensor, _hit_outputs, _mt_pairs,
+                          _pack_spheres, _pack_tris, _plain_result, _ray_args,
+                          _sphere_pairs, scene_planes)
 
 BLOCK = 8192       # triangles per block (the reference's KConfig.tri_block)
-MAX_BLOCKS = 64    # the kernel's per-thread block list (kMaxBlocks)
+MAX_BLOCKS = 64    # two block keys a lane (the kernel's kMaxBlocks)
 # The reference's crossover (pallas_intersect.py:131-136, 1954-1962): its
 # resident kernel keeps the triangle planes in VMEM at 128 lanes x 4 bytes a
 # row within a 12 MB budget, so scenes of more than 24,576 padded triangles
@@ -46,22 +46,6 @@ LANE_ROW_BYTES = 128 * 4
 def uses_blocked(scene: Scene) -> bool:
     """Whether ``scene`` takes the streaming kernel (past the crossover)."""
     return scene.padded_tris * LANE_ROW_BYTES > VMEM_TRI_BUDGET
-
-
-def _block_aabbs(clu, block_clusters: int):
-    """(n_blocks, 8) box of each run of ``block_clusters`` cluster boxes
-    ``clu`` (the real clusters only): the min of their lows and the max of
-    their highs (the reference's block boxes, pallas_intersect.py:1549-1556).
-    A last block that is part padding spans its real clusters."""
-    C = clu.shape[0]
-    nb = -(-C // block_clusters)
-    pad = nb * block_clusters - C
-    inf = float("inf")
-    lo = torch.cat([clu[:, 0:3], clu.new_full((pad, 3), inf)])
-    hi = torch.cat([clu[:, 3:6], clu.new_full((pad, 3), -inf)])
-    return torch.cat([lo.view(nb, block_clusters, 3).amin(1),
-                      hi.view(nb, block_clusters, 3).amax(1),
-                      clu.new_zeros((nb, 2))], dim=1).contiguous()
 
 
 def block_layout(scene: Scene, block: int = BLOCK):
@@ -128,9 +112,13 @@ def _library() -> ctypes.CDLL:
     from ..utils import build
     lib = build.load("blocked_hit")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rtt_blocked_hit.argtypes = [p, i, p, i, i, p, p, i, p, i, i, p,
-                                    ctypes.c_float, i, p, p, p, p]
+    lib.rtt_blocked_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, i, p, p, i,
+                                    i, p, ctypes.c_float, i, p, p, p, p]
     lib.rtt_blocked_hit.restype = i
+    lib.rtt_blocked_hit_shared_bytes.argtypes = []
+    lib.rtt_blocked_hit_shared_bytes.restype = i
+    lib.rtt_blocked_hit_blocks_per_sm.argtypes = [i]
+    lib.rtt_blocked_hit_blocks_per_sm.restype = i
     lib.rtt_blocked_hit_error_string.argtypes = [i]
     lib.rtt_blocked_hit_error_string.restype = ctypes.c_char_p
     return lib
@@ -145,7 +133,9 @@ def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
     CUDA tensors launch the kernel (built at first use); CPU tensors take
     the plain version; any other device, input the kernel does not take,
     or a scene of more than ``MAX_BLOCKS`` blocks raises. Nothing falls
-    back silently."""
+    back silently. The scene's packed planes come from
+    ``closest_hit.scene_planes``' cache, under its contract: a scene tensor
+    written behind autograd's back needs ``clear_plane_cache()``."""
     if o.device.type == "cpu":
         return nearest_hit_blocked_reference(scene, o, d, t_min, alive,
                                              want_attrs, block)
@@ -158,26 +148,21 @@ def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
         raise ValueError(f"{scene.num_tris} triangles make {n_blocks} blocks "
                          f"of {block}; the kernel takes at most {MAX_BLOCKS}")
     R, dev = o.shape[0], o.device
-    t_out = torch.empty((R,), dtype=torch.float32, device=dev)
-    id_out = torch.empty((R,), dtype=torch.int32, device=dev)
-    rows = (torch.empty((merged_width(False), R), dtype=torch.float32,
-                        device=dev) if want_attrs else None)
+    t_out, id_out, rows = _hit_outputs(R, dev, want_attrs)
     if R == 0:
         return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
     lib = _library()
-    rays = _rays_soa(o, d, alive)
-    with torch.no_grad():  # the planes are kernel input, not graph nodes
-        sph, tri = _pack_spheres(scene), _pack_tris(scene)
-        clu = _cluster_aabbs(scene)[:n_clusters].contiguous()
-        blk = _block_aabbs(clu, block_clusters)
-    cmap = _copy_map_tensor(dev)
+    planes = scene_planes(scene)
+    (o, d, alive), ray_ptrs = _ray_args(o, d, alive)
     with torch.cuda.device(dev):
         err = lib.rtt_blocked_hit(
-            rays.data_ptr(), R, sph.data_ptr(), scene.padded_spheres,
-            int(scene.num_spheres > 0), tri.data_ptr(), clu.data_ptr(),
-            n_clusters, blk.data_ptr(), n_blocks, block_clusters,
-            cmap.data_ptr(), float(t_min), int(want_attrs),
-            t_out.data_ptr(), id_out.data_ptr(),
+            *ray_ptrs, R, planes.sph.data_ptr(), scene.padded_spheres,
+            scene.num_spheres, planes.geo.data_ptr(),
+            planes.tri.data_ptr(), planes.clu.data_ptr(), n_clusters,
+            planes.sup.data_ptr(),
+            planes.block_boxes(block_clusters).data_ptr(), n_blocks,
+            block_clusters, _copy_map_tensor(dev).data_ptr(), float(t_min),
+            int(want_attrs), t_out.data_ptr(), id_out.data_ptr(),
             rows.data_ptr() if want_attrs else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -15,12 +15,19 @@ int32 (0 on miss) and, with ``want_attrs``, the winner's merged-table row
   * ``nearest_hit_attrs_reference`` — the plain version: brute force over
     every sphere and triangle with the kernel's arithmetic and tie rule,
     no culling, in ray chunks.
+  * ``scene_planes`` — the kernels' packed inputs of a scene, cached per
+    device while the scene's tensors are unchanged; ``scene_planes.packs``
+    counts the packings.
 
 The plane arrays share the reference's layouts: spheres (SP, 16)
 ``[c(3) | r² | valid | albedo(3) | emission(3) | es | smooth | pad(3)]``,
 triangles (TP, 32) ``[a(3) | e1(3) | e2(3) | n(3) | n0 n1 n2 (9) |
 albedo(3) | emission(3) | es | smooth | pad(3)]``, cluster boxes (C, 8)
-``[lo(3) | hi(3) | pad(2)]`` over runs of 64 triangles.
+``[lo(3) | hi(3) | pad(2)]`` over runs of 64 triangles and super boxes
+over runs of 8 clusters. The kernel reads the triangles' geometry from a
+plane of its own, (TP, 12) ``[a | e1 | e2 | n]``: 48-byte rows, so that a
+cluster is one contiguous 3,072-byte run for its asynchronous copies; the
+32-column plane is where it copies the winner's attributes from.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from ..scene import Scene
 from .intersect import _pack_attrs, cross, merged_width
 
 CLUSTER = 64           # triangles per culling cluster (the kernel's kCluster)
+SUPER = 8              # clusters per super box (the kernel's kSuper)
+GEO_COLS = 12          # geometry plane columns: a, e1, e2, n
 TRI_DET_EPS = 1e-6
 # ray chunk of the plain version: keeps its (rays, primitives) temporaries
 # near 256 MB each on a 16k-triangle scene
@@ -112,6 +121,112 @@ def _cluster_aabbs(scene: Scene, csize: int = CLUSTER):
     lo = torch.where(valid, vs, inf).reshape(C, csize * 3, 3).amin(1)
     hi = torch.where(valid, vs, -inf).reshape(C, csize * 3, 3).amax(1)
     return torch.cat([lo, hi, lo.new_zeros((C, 2))], dim=1).contiguous()
+
+
+def _pack_geo(tri):
+    """(TP, 12) geometry plane ``[a | e1 | e2 | n]``: the first 12 columns
+    of the triangle planes ``tri``, contiguous."""
+    return tri[:, :GEO_COLS].contiguous()
+
+
+def _group_aabbs(boxes, size: int):
+    """(ceil(n / size), 8) box of each run of ``size`` rows of the (n, 8)
+    box plane ``boxes``: the min of their lows and the max of their highs.
+    Rows of padding (lo = +inf, hi = -inf) drop out, and a last run that is
+    short spans the rows it has."""
+    n = boxes.shape[0]
+    groups = -(-n // size)
+    pad = groups * size - n
+    inf = float("inf")
+    lo = torch.cat([boxes[:, 0:3], boxes.new_full((pad, 3), inf)])
+    hi = torch.cat([boxes[:, 3:6], boxes.new_full((pad, 3), -inf)])
+    return torch.cat([lo.view(groups, size, 3).amin(1),
+                      hi.view(groups, size, 3).amax(1),
+                      boxes.new_zeros((groups, 2))], dim=1).contiguous()
+
+
+def _super_aabbs(clu, ss: int = SUPER):
+    """(ceil(C / ss), 8) super boxes over runs of ``ss`` rows of the real
+    cluster boxes ``clu`` (C, 8): the reference's ``_super_aabbs`` over
+    ``_pad_clusters_for_supers``, without its padding rows (the kernels
+    stop at the real super count)."""
+    return _group_aabbs(clu, ss)
+
+
+# the scene tensors the packers read: the cache's key
+_PLANE_FIELDS = (
+    "sphere_center", "sphere_radius", "sphere_valid", "sphere_albedo",
+    "sphere_emission", "sphere_emission_strength", "sphere_smoothness",
+    "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
+    "tri_albedo", "tri_emission", "tri_emission_strength", "tri_smoothness",
+    "tri_valid")
+
+
+class ScenePlanes:
+    """The kernels' packed inputs of one scene: ``sph`` (SP, 16), ``geo``
+    (TP, 12), ``tri`` (TP, 32), ``clu`` (TP / 64, 8), ``sup`` (real supers,
+    8) and, through ``block_boxes``, the streaming kernel's block boxes.
+    Kernel inputs only: none requires grad."""
+
+    def __init__(self, scene: Scene):
+        with torch.no_grad():  # the planes are kernel input, not graph nodes
+            self.sph = _pack_spheres(scene)
+            self.tri = _pack_tris(scene)
+            self.geo = _pack_geo(self.tri)
+            self.clu = _cluster_aabbs(scene)
+            self.n_clusters = -(-scene.num_tris // CLUSTER)
+            self.sup = _super_aabbs(self.clu[:self.n_clusters])
+        self._blk = {}
+
+    def block_boxes(self, block_clusters: int):
+        """(real blocks, 8) boxes over runs of ``block_clusters`` real
+        clusters (the reference's block boxes,
+        pallas_intersect.py:1549-1556), made once per block size."""
+        if block_clusters not in self._blk:
+            with torch.no_grad():
+                self._blk[block_clusters] = _group_aabbs(
+                    self.clu[:self.n_clusters], block_clusters)
+        return self._blk[block_clusters]
+
+
+_plane_cache = {}   # device -> (key, the keyed tensors, ScenePlanes)
+
+
+def scene_planes(scene: Scene) -> ScenePlanes:
+    """The packed planes of ``scene``, from the cache while its tensors are
+    the same storage at the same version (an in-place update, such as an
+    optimizer's step, bumps ``_version``: a training step packs anew, a
+    render packs once per scene). One entry per device. The entry keeps
+    the keyed tensors alive, so their addresses cannot be handed to other
+    tensors while it stands; it also keeps that scene's planes (128 + 48
+    bytes a triangle) on the device until another scene is packed there or
+    ``clear_plane_cache()`` is called.
+
+    The contract: a scene changes through new tensors or through in-place
+    operations that autograd sees. A write that leaves ``_version`` as it
+    was (through ``.data``, ``set_`` or a kernel given the raw pointer) is
+    not seen, and the kernels would go on reading the planes packed before
+    it: after such a write the caller calls ``clear_plane_cache()``."""
+    leaves = [getattr(scene, k) for k in _PLANE_FIELDS]
+    key = (scene.num_tris,) + tuple(
+        (x.data_ptr(), x._version, x.shape) for x in leaves)
+    entry = _plane_cache.get(scene.device)
+    if entry is None or entry[0] != key:
+        # detached aliases share storage and version with the leaves
+        entry = (key, [x.detach() for x in leaves], ScenePlanes(scene))
+        _plane_cache[scene.device] = entry
+        scene_planes.packs += 1
+    return entry[2]
+
+
+scene_planes.packs = 0
+
+
+def clear_plane_cache():
+    """Forget every cached scene and free its planes: the next query packs
+    anew. Needed after a write to a scene tensor that autograd does not see
+    (``scene_planes``)."""
+    _plane_cache.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -217,9 +332,13 @@ def _library() -> ctypes.CDLL:
     from ..utils import build
     lib = build.load("closest_hit")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rtt_closest_hit.argtypes = [p, i, p, i, i, p, p, i, p,
-                                    ctypes.c_float, i, p, p, p, p]
+    lib.rtt_closest_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, i, p, i,
+                                    p, ctypes.c_float, i, p, p, p, p]
     lib.rtt_closest_hit.restype = i
+    lib.rtt_closest_hit_shared_bytes.argtypes = [i, i]
+    lib.rtt_closest_hit_shared_bytes.restype = i
+    lib.rtt_closest_hit_blocks_per_sm.argtypes = [i, i, i]
+    lib.rtt_closest_hit_blocks_per_sm.restype = i
     lib.rtt_error_string.argtypes = [i]
     lib.rtt_error_string.restype = ctypes.c_char_p
     return lib
@@ -250,14 +369,28 @@ def _check_inputs(scene: Scene, o, d, alive):
         raise ValueError("too many rays or triangles for 32-bit indexing")
 
 
-def _rays_soa(o, d, alive):
-    """The kernels' (7, R) float32 ray block: rows ox oy oz dx dy dz and
-    alive (1.0 or 0.0), detached."""
-    rays = torch.empty((7, o.shape[0]), dtype=torch.float32, device=o.device)
-    rays[0:3] = o.detach().T
-    rays[3:6] = d.detach().T
-    rays[6] = 1.0 if alive is None else alive.to(torch.float32)
-    return rays
+# bytes of shared memory a thread block can take on the card (227 KB)
+MAX_SHARED_BYTES = 232_448
+
+
+def _ray_args(o, d, alive):
+    """The kernels' ray arguments: o, d and alive detached and contiguous
+    (the kernels read them as the renderer holds them: no copy), and their
+    three device pointers, alive's None where every lane is live. The
+    caller holds the returned tensors over the launch."""
+    o, d = o.detach().contiguous(), d.detach().contiguous()
+    alive = None if alive is None else alive.contiguous()
+    return (o, d, alive), (o.data_ptr(), d.data_ptr(),
+                           None if alive is None else alive.data_ptr())
+
+
+def _hit_outputs(R, dev, want_attrs):
+    """Uninitialised (t, prim_id, rows) outputs, rows None without
+    ``want_attrs``."""
+    return (torch.empty((R,), dtype=torch.float32, device=dev),
+            torch.empty((R,), dtype=torch.int32, device=dev),
+            torch.empty((merged_width(False), R), dtype=torch.float32,
+                        device=dev) if want_attrs else None)
 
 
 def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
@@ -266,8 +399,11 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
     with ``want_attrs``, else (t, prim_id).
 
     CUDA tensors launch the kernel (built at first use); CPU tensors take
-    the plain version; any other device, or input the kernel does not
-    take, raises. Nothing falls back silently."""
+    the plain version; any other device, input the kernel does not take,
+    or a scene whose boxes do not fit into the kernel's shared memory
+    raises. Nothing falls back silently. The scene's packed planes come
+    from ``scene_planes``' cache: a scene tensor written behind autograd's
+    back (``.data``) needs ``clear_plane_cache()`` before the next call."""
     if o.device.type == "cpu":
         return nearest_hit_attrs_reference(scene, o, d, t_min, alive,
                                            want_attrs)
@@ -275,26 +411,28 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
         raise ValueError(f"no closest-hit kernel for device {o.device}")
     _check_inputs(scene, o, d, alive)
     R, dev = o.shape[0], o.device
-    t_out = torch.empty((R,), dtype=torch.float32, device=dev)
-    id_out = torch.empty((R,), dtype=torch.int32, device=dev)
-    rows = (torch.empty((merged_width(False), R), dtype=torch.float32,
-                        device=dev) if want_attrs else None)
+    t_out, id_out, rows = _hit_outputs(R, dev, want_attrs)
     if R == 0:
         return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
     lib = _library()
-    rays = _rays_soa(o, d, alive)
-    with torch.no_grad():  # the planes are kernel input, not graph nodes
-        sph, tri = _pack_spheres(scene), _pack_tris(scene)
-        clu = _cluster_aabbs(scene)
-    cmap = _copy_map_tensor(dev)
-    n_clusters = -(-scene.num_tris // CLUSTER)
+    planes = scene_planes(scene)
+    n_clusters, n_supers = planes.n_clusters, planes.sup.shape[0]
+    shared = lib.rtt_closest_hit_shared_bytes(n_clusters, n_supers)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the closest-hit kernel keeps a scene's boxes in shared "
+            f"memory: {n_clusters} clusters need {shared} bytes of the "
+            f"card's {MAX_SHARED_BYTES}; the streaming kernel "
+            f"(blocked_hit.nearest_hit_blocked) takes such scenes")
+    (o, d, alive), ray_ptrs = _ray_args(o, d, alive)
     with torch.cuda.device(dev):
         err = lib.rtt_closest_hit(
-            rays.data_ptr(), R, sph.data_ptr(), scene.padded_spheres,
-            int(scene.num_spheres > 0), tri.data_ptr(), clu.data_ptr(),
-            n_clusters, cmap.data_ptr(), float(t_min), int(want_attrs),
-            t_out.data_ptr(), id_out.data_ptr(),
-            rows.data_ptr() if want_attrs else None,
+            *ray_ptrs, R, planes.sph.data_ptr(), scene.padded_spheres,
+            scene.num_spheres, planes.geo.data_ptr(),
+            planes.tri.data_ptr(), planes.clu.data_ptr(), n_clusters,
+            planes.sup.data_ptr(), n_supers, _copy_map_tensor(dev).data_ptr(),
+            float(t_min), int(want_attrs), t_out.data_ptr(),
+            id_out.data_ptr(), rows.data_ptr() if want_attrs else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("closest-hit kernel launch failed: "

@@ -36,7 +36,8 @@ from ray_tracer_tpu_torch.ops import blocked_hit as tbh
 from ray_tracer_tpu_torch.ops import closest_hit as tch
 from ray_tracer_tpu_torch.ops import intersect as tint
 
-from test_torch_common import probe_rays, t_, terrain, to_port
+from test_torch_common import (probe_rays, secondary_rays, t_, terrain,
+                               tied, to_port)
 from test_torch_intersect import T_RTOL
 from test_torch_scatter import _float_leaves, _grads, _hit_loss
 
@@ -78,13 +79,7 @@ def _tied(ts):
     """``ts`` with triangles [1024, 2048) made copies of [0, 1024): a ray
     that hits one of a pair hits the other at the same t, in another
     1024-triangle block."""
-    fields = {f.name: getattr(ts, f.name) for f in dataclasses.fields(ts)}
-    for k, v in fields.items():
-        if k.startswith("tri_") and isinstance(v, torch.Tensor):
-            v = v.clone()
-            v[1024:2048] = v[0:1024]
-            fields[k] = v
-    return dataclasses.replace(ts, **fields)
+    return tied(ts, 1024)
 
 
 @pytest.fixture(scope="module")
@@ -304,16 +299,23 @@ def cuda_device():
 def test_kernel_matches_plain_version_on_cuda(cuda_device):
     """The CUDA kernel against its plain version and against the
     closest-hit kernel on the card, both want_attrs variants, blocks of
-    1024 and 8192, ties across blocks included: at most 2 id mismatches,
-    t and rows bit-equal where the ids agree, dead and miss lanes
-    (inf, 0, zero row); a scene of too many blocks raises."""
+    1024 and 8192, ties across blocks and across supers included, on
+    random rays and on secondary rays (origins inside the scene, random
+    directions, where the lanes of a warp diverge): at most 2 id
+    mismatches, t and rows bit-equal where the ids agree, dead and miss
+    lanes (inf, 0, zero row); a scene of too many blocks raises."""
     _, ts = _mesh()
     scenes = {"mesh": ts.to(cuda_device),
               "tied": _tied(ts).to(cuda_device),
+              "tied-supers": tied(ts, 512).to(cuda_device),
               "terrain": terrain(trt, n=60)[0].to(cuda_device)}
-    o, d = (t_(x).to(cuda_device) for x in _random_rays(4096, seed=17))
     alive = t_(np.random.default_rng(18).random(4096) < 0.7).to(cuda_device)
-    for name, s in scenes.items():
+    cases = [(name, s, _random_rays(4096, seed=17))
+             for name, s in scenes.items()]
+    cases += [(name + " secondary", s, secondary_rays(s, 4096, seed=19))
+              for name, s in scenes.items()]
+    for name, s, rays in cases:
+        o, d = (t_(x).to(cuda_device) for x in rays)
         for block in (SMALL_BLOCK, tbh.BLOCK):
             for want_attrs in (True, False):
                 before = tbh.nearest_hit_blocked.launches
@@ -337,3 +339,11 @@ def test_kernel_matches_plain_version_on_cuda(cuda_device):
                     assert not bool(got[2][:, miss].any())
     with pytest.raises(ValueError, match="at most"):
         tbh.nearest_hit_blocked(scenes["terrain"], o, d, block=64)
+    # the tied scenes do tie: some winner has a copy a super or a block on
+    for name, n in (("tied", 1024), ("tied-supers", 512)):
+        o, d = (t_(x).to(cuda_device) for x in _random_rays(4096, seed=17))
+        t, ids = tbh.nearest_hit_blocked(scenes[name], o, d,
+                                         want_attrs=False)
+        ids = ids - ts.padded_spheres
+        assert int((torch.isfinite(t) & (ids >= 0) & (ids < n)).sum()) > 10
+        assert not bool((torch.isfinite(t) & (ids >= n) & (ids < 2 * n)).any())

@@ -136,6 +136,35 @@ def probe_rays(cam, n, seed):
     return o, d
 
 
+def tied(ts, n):
+    """Port scene ``ts`` with triangles [n, 2n) made copies of [0, n): a
+    ray that hits one of a pair hits the other at the same t. With n = 512
+    the copies lie in the next super (8 clusters of 64), with n = 1024 in
+    the next 1024-triangle block."""
+    fields = {f.name: getattr(ts, f.name) for f in dataclasses.fields(ts)}
+    for k, v in fields.items():
+        if k.startswith("tri_") and isinstance(v, torch.Tensor):
+            v = v.clone()
+            v[n:2 * n] = v[0:n]
+            fields[k] = v
+    return dataclasses.replace(ts, **fields)
+
+
+def secondary_rays(ts, n, seed):
+    """n rays as a bounce leaves them: origins uniform inside the bounds of
+    the scene's real triangles (of its spheres where it has none), random
+    directions. float32 numpy (o, d)."""
+    rng = np.random.default_rng(seed)
+    if ts.num_tris:
+        pts = torch.cat([ts.tri_v0[:ts.num_tris], ts.tri_v1[:ts.num_tris],
+                         ts.tri_v2[:ts.num_tris]]).cpu().numpy()
+    else:
+        pts = ts.sphere_center[:ts.num_spheres].cpu().numpy()
+    lo, hi = pts.min(0), pts.max(0)
+    o = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    return o, rng.normal(size=(n, 3)).astype(np.float32)
+
+
 def frac_off(a, b, tol=2e-2):
     """Fraction of pixels whose largest channel difference exceeds tol
     (the reference's image parity gate, bench.py section_parity)."""

@@ -19,12 +19,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.ops import intersect as jint
 from ray_tracer_tpu.ops import pallas_intersect as jpk
 from ray_tracer_tpu_torch.ops import closest_hit as tch
 from ray_tracer_tpu_torch.ops import intersect as tint
 
-from test_torch_common import probe_rays, scene_pair, t_
+from test_torch_common import (probe_rays, scene_pair, secondary_rays, t_,
+                               terrain, tied)
 
 SCENES = ["room", "random_balls", "mesh80", "terrain"]
 T_RTOL = 1e-4
@@ -155,20 +157,56 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _assert_kernel_matches(ts, o, d, alive, label):
+    """Both want_attrs variants of the kernel against the plain version."""
+    for want_attrs in (True, False):
+        got = tch.nearest_hit_attrs(ts, o, d, 1e-4, alive, want_attrs)
+        ref = tch.nearest_hit_attrs_reference(ts, o, d, 1e-4, alive,
+                                              want_attrs)
+        same = got[1] == ref[1]
+        assert int((~same).sum()) <= 2, label
+        assert torch.equal(got[0][same], ref[0][same]), label
+        if want_attrs:
+            assert torch.equal(got[2][:, same], ref[2][:, same]), label
+    return got
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_cuda(cuda_device):
     """The CUDA kernel against its plain version on the card: ids, t and
-    rows exact except where culling at a box boundary changes a winner."""
+    rows exact except where culling at a box boundary changes a winner; on
+    camera and random rays, on secondary rays (origins inside the scene,
+    random directions, where the lanes of a warp diverge), and on a mesh
+    whose triangles tie across supers (the lower id of each pair wins)."""
     for name in SCENES:
         _, ts, o, d, alive = _inputs(name, n=4096)
         ts = ts.to(cuda_device)
-        o, d, alive = (t_(x).to(cuda_device) for x in (o, d, alive))
-        for want_attrs in (True, False):
-            got = tch.nearest_hit_attrs(ts, o, d, 1e-4, alive, want_attrs)
-            ref = tch.nearest_hit_attrs_reference(ts, o, d, 1e-4, alive,
-                                                  want_attrs)
-            same = got[1] == ref[1]
-            assert int((~same).sum()) <= 2, name
-            assert torch.equal(got[0][same], ref[0][same]), name
-            if want_attrs:
-                assert torch.equal(got[2][:, same], ref[2][:, same]), name
+        alive = t_(alive).to(cuda_device)
+        for label, rays in ((name, (o, d)), (name + " secondary",
+                                             secondary_rays(ts, 4096, 31))):
+            o_c, d_c = (t_(x).to(cuda_device) for x in rays)
+            _assert_kernel_matches(ts, o_c, d_c, alive, label)
+    from test_torch_blocked import _mesh, _random_rays
+    ts = tied(_mesh()[1], 512).to(cuda_device)
+    o, d = (t_(x).to(cuda_device) for x in _random_rays(4096, seed=17))
+    t, ids = _assert_kernel_matches(ts, o, d, None, "tied across supers")
+    ids = ids - ts.padded_spheres
+    assert int((torch.isfinite(t) & (ids >= 0) & (ids < 512)).sum()) > 10
+    assert not bool((torch.isfinite(t) & (ids >= 512) & (ids < 1024)).any())
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_scene_whose_boxes_exceed_shared_memory(cuda_device):
+    """The resident kernel keeps every cluster and super box in shared
+    memory: a scene of 5,228 clusters (the terrain at n=410, 334,562
+    triangles) needs more than the card's 227 KB, and the wrapper raises
+    instead of launching; the streaming kernel takes the same scene."""
+    from ray_tracer_tpu_torch.ops import blocked_hit as tbh
+    ts = terrain(trt, n=410)[0].to(cuda_device)
+    o, d = (t_(x).to(cuda_device) for x in secondary_rays(ts, 256, 3))
+    before = tch.nearest_hit_attrs.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tch.nearest_hit_attrs(ts, o, d)
+    assert tch.nearest_hit_attrs.launches == before
+    t, ids, rows = tbh.nearest_hit_blocked(ts, o, d)
+    assert t.shape == (256,) and rows.shape == (26, 256)
