@@ -11,7 +11,9 @@ Phases, each printing one line (phase 1 one per kernel):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. builds the four kernels from the repository's sources, one nvcc
-     each, started together, and prints ptxas's registers and spills;
+     each, started together, and prints ptxas's registers, stack frames
+     and spills; the traversal kernels (closest hit, streaming closest hit,
+     any hit) must show 0-byte stack frames and no spills;
   2. kernel vs its plain PyTorch version on the card, 65,536 rays on each
      of room, metal, random_balls and terrain (camera + random rays, about
      half of them dead), both want_attrs variants: at most 2 id mismatches
@@ -36,22 +38,34 @@ Phases, each printing one line (phase 1 one per kernel):
      launch on this forward path (the scene is below the streaming
      kernel's crossover), and the render must not pack the scene's planes
      again (the warm-up frame packed them; so in phases 7 and 8);
-  2b. (run before 3) the scatter-add kernel vs its plain version
-     (``index_add_``) on the card, on the 1080p terrain primary
-     wavefront's winner ids in the blocked pixel order (misses routed to
-     the dropped id) with seeded random cotangents (26, R): all lanes,
-     about 5% of lanes live, no lane live, and the row-major (R, 26) form;
-     each entry within 1e-5 of the plain value plus 1e-6 of the sum of
-     |g| over the lanes it adds up; kernel (both forms) and plain ms at
-     1080p, and whether two kernel runs were bit-equal;
+  2b. (run before 3) the scatter-add kernel vs the exact sum (its plain
+     version, ``index_add_``, in float64) on the card, on the 1080p
+     terrain primary wavefront's winner ids in the blocked pixel order
+     (misses routed to the dropped id) with seeded random cotangents
+     (26, R): all lanes, about 5% of lanes live, no lane live, and the
+     row-major (R, 26) form; and on the real cotangents and ids that the
+     winner-row backward hands it on bounces 0 and 1 of one 1080p training
+     step (both forms); each entry within 1e-5 of the exact value plus
+     1e-6 of the sum of |g| over the lanes it adds up (the f32 plain
+     version's own error printed beside); kernel (both forms), plain and
+     ``index_add_`` ms (on a contiguous (R, 26) source, and on the
+     transposed view) on the dense and the real cotangents, and whether
+     two kernel runs were bit-equal;
   2c. (run before 3) the any-hit kernel vs its plain version on the card:
      65,536 shadow segments on each of room, metal, random_balls, terrain
      and terrain_nee (terrain plus a 2-triangle light quad and a small
      emissive sphere), from camera rays' hit points to points from
      ``lights.sample_lights`` (random points where a scene has no light),
      about half of the lanes dead, once as they are and once scaled by
-     0.1: 0 mismatches and dead lanes false; then both timed at the main
-     path's shape, the 1080p bounce-0 shadow wavefront of terrain_nee;
+     0.1: 0 mismatches and dead lanes false; the same on 4,096 random and
+     4,096 secondary rays of the random mesh, its copies tied across
+     blocks and across supers, and the terrain at n=60; then at the main
+     path's shape, the 1080p bounce-0 shadow wavefront of terrain_nee: 0
+     mismatches, the streaming kernel without rows against it, the
+     kernel, the streaming kernel and the plain version timed, the
+     kernel's shared memory and blocks per SM, and its bound from the
+     sphere, super, cluster and triangle tests its warps make (beside the
+     bound of the sweep without supers);
   2d. (run before 3) the streaming kernel vs its plain version on the
      card: 65,536 probe rays on terrain190k (the terrain at 190,962
      triangles, 24 blocks of 8192) and, through the wrapper, on room,
@@ -64,9 +78,14 @@ Phases, each printing one line (phase 1 one per kernel):
      the streaming kernel's bound from the block, super, cluster and
      triangle tests its warps make (beside the bound of a ray-per-thread
      traversal without supers); the streaming kernel on terrain190k's
-     bounce-1 wavefront as in phase 2; and the any-hit kernel against the
+     bounce-1 wavefront as in phase 2; the any-hit kernel against the
      streaming kernel without rows on terrain190k_nee's 1080p bounce-0
-     shadow wavefront (at most 2 mismatches), both timed;
+     shadow wavefront (at most 2 mismatches), both timed; and past one
+     round of 64 block boxes: the heightfield at n=520 (538,722
+     triangles, 66 blocks of 8192) against the plain version on 16,384
+     primary and 16,384 secondary rays (0 mismatches), its 1080p primary
+     wavefront timed, and the any-hit kernel's refusal of that scene (its
+     boxes exceed shared memory);
   4. path parity: one 256x144 frame through the kernel and through the
      plain oracle (backend "torch") on the same CUDA tensors; the fraction
      of pixels off by more than 2e-2 must be below 2e-3;
@@ -130,6 +149,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -144,6 +164,7 @@ from ray_tracer_tpu_torch.grad import DEFAULT_TRAINABLE, make_train_step
 from ray_tracer_tpu_torch.ops import anyhit as ah
 from ray_tracer_tpu_torch.ops import blocked_hit as bh
 from ray_tracer_tpu_torch.ops import closest_hit as ch
+from ray_tracer_tpu_torch.ops import intersect
 from ray_tracer_tpu_torch.ops import scatter_rows as sc
 from ray_tracer_tpu_torch.renderer import (_blocked_ids, render_frame,
                                            render_progressive,
@@ -163,10 +184,13 @@ TRAIN_STEPS = 5        # timed training steps after one warm-up step
 ALBEDO_START = 0.8     # the training start scales both albedos by this
 ALBEDO_LR, GEOMETRY_LR = 1e-2, 1e-4   # Adam rates of the training phase
 ALBEDOS = ("sphere_albedo", "tri_albedo")
-# scatter gate: |kernel - plain| <= RTOL |plain| + ATOL sum|g| per entry,
-# the sum of |g| over the lanes the entry adds up: two f32 sums of the same
-# n values in different orders differ by up to ~n u sum|g| (u = 6e-8), and
-# on the 1080p terrain a sphere's entries sum ~1e5 lanes
+# scatter gate: |kernel - exact| <= RTOL |exact| + ATOL sum|g| per entry,
+# exact the plain version's sum in float64 and sum|g| the sum of |g| over
+# the lanes the entry adds up, so the bound grows with each entry's lanes.
+# An f32 sum of n values errs by up to ~n u sum|g| (u = 6e-8) in the worst
+# order; on the 1080p terrain a sphere's entries sum ~1e5 lanes, and real
+# cotangents share a sign, so their f32 sums err alike: two f32 sums (the
+# kernel and index_add_) are held to the exact one, not to each other
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-6
 GRAD_PARITY = 1e-4     # per leaf, x that leaf's max |g|
 NEE = dict(nee=True, mis=True)   # phase 7's knobs on top of PARAMS
@@ -178,6 +202,9 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # f32 operations per pair test and per slab test (the kernels' arithmetic)
 OPS_PER_TRIANGLE, OPS_PER_SPHERE, OPS_PER_BOX = 30, 20, 20
 GROUP = 32   # clusters per traversal group (csrc/hit_common.cuh:kGroup)
+# entering lanes from which each tests a cluster's triangles itself
+# (csrc/hit_common.cuh:kDenseLanes)
+DENSE_LANES = 24
 # kernel name -> (source, the TPU kernel it replaces); the library is the
 # source's stem
 KERNELS = {
@@ -198,8 +225,12 @@ WRAPPERS = {"closest_hit": ch.nearest_hit_attrs,
             "blocked_hit": bh.nearest_hit_blocked}
 LARGE_N = 310          # terrain190k: 2 (310 - 1)^2 = 190,962 triangles
 LARGE_TRAIN_STEPS = 3  # phase 8's timed training steps
+HUGE_N = 520           # 538,722 triangles: 66 blocks of 8192, two rounds
 LIBRARIES = [os.path.splitext(os.path.basename(src))[0]
              for src, _ in KERNELS.values()]
+# the libraries of the traversal kernels (B1, B4, B3): 0-byte stack frames
+# and no spills, gated in phase 1
+TRAVERSAL = ("closest_hit", "blocked_hit", "anyhit")
 
 
 def heightfield(n, extent, y0, rng):
@@ -321,24 +352,19 @@ def bound(nbytes, ops):
                 bytes=int(nbytes), ops=int(ops))
 
 
-def plane_bytes(scene, block=None):
-    """Bytes of the planes a closest-hit kernel reads, each input once:
+def plane_bytes(scene, block=None, attrs=True):
+    """Bytes of the planes a ray-query kernel reads, each input once:
     spheres, 128 bytes a triangle (the geometry plane repeats columns 0:12
     of the attribute plane, so a triangle is 48 bytes of geometry and the
-    80 of its other attributes), cluster and super boxes and, with
+    80 of its other attributes; 48 without ``attrs``: the any-hit kernel
+    reads the geometry plane only), cluster and super boxes and, with
     ``block``, the streaming kernel's block boxes."""
     clusters = -(-scene.num_tris // ch.CLUSTER)
     boxes = clusters + -(-clusters // ch.SUPER) + (
         bh.block_layout(scene, block)[2] if block else 0)
     return 4 * (scene.padded_spheres * 16
-                + scene.padded_tris * 32 + boxes * 8)
-
-
-def anyhit_plane_bytes(scene):
-    """Bytes of the sphere, triangle and cluster-box planes the any-hit
-    kernel reads."""
-    return 4 * (scene.padded_spheres * 16 + scene.padded_tris * 32
-                + scene.padded_tris // ch.CLUSTER * 8)
+                + scene.padded_tris * (32 if attrs else ch.GEO_COLS)
+                + boxes * 8)
 
 
 def _segments(c0, c1):
@@ -362,7 +388,7 @@ def _hierarchy_work(planes, c0, c1, orr, drr, irr, best, t_min):
     best after). A ray tests every super of every group, the cluster boxes
     of the supers it enters no farther than its best at the group's start,
     and the 64 triangles of each cluster it enters no farther than its best
-    over the clusters before it. ``flat_clusters`` and ``strict_pairs`` are
+    over the clusters before it. ``flat_clusters`` and ``flat_pairs`` are
     what a sweep without supers tests: every cluster box, and the triangles
     of boxes entered strictly nearer than the best (the closest-hit kernel
     before it had supers). Brute force: every pair is computed."""
@@ -388,7 +414,7 @@ def _hierarchy_work(planes, c0, c1, orr, drr, irr, best, t_min):
         supers=r * len(segs), clusters=int((s_enter * s_len).sum()),
         pairs=ch.CLUSTER * int((hit_box & (ctn <= before[:, :G])).sum()),
         flat_clusters=r * G,
-        strict_pairs=ch.CLUSTER * int((hit_box & (ctn < before[:, :G])).sum()))
+        flat_pairs=ch.CLUSTER * int((hit_box & (ctn < before[:, :G])).sum()))
     return counts, before[:, -1]
 
 
@@ -413,12 +439,12 @@ def traversal_work(scene, o, d, alive, t_min=1e-4, chunk=2048):
     brute force in chunks of live lanes): every live lane tests every valid
     sphere, then walks the whole hierarchy as ``_hierarchy_work`` counts →
     dict of sphere pairs, super boxes, cluster boxes, triangle pairs, and
-    the ``flat_clusters`` and ``strict_pairs`` of a sweep without supers."""
+    the ``flat_clusters`` and ``flat_pairs`` of a sweep without supers."""
     live = alive.nonzero()[:, 0]
     o, d = o[live], d[live]
     planes = ch.scene_planes(scene)
     total = dict.fromkeys(("spheres", "supers", "clusters", "pairs",
-                           "flat_clusters", "strict_pairs"), 0)
+                           "flat_clusters", "flat_pairs"), 0)
     for s in range(0, o.shape[0], chunk):
         oc, dc = _columns(o[s:s + chunk]), _columns(d[s:s + chunk])
         irr = tuple(1.0 / torch.where(x == 0.0, 1e-30, x) for x in dc)
@@ -433,67 +459,102 @@ def traversal_work(scene, o, d, alive, t_min=1e-4, chunk=2048):
 
 
 @torch.no_grad()
-def anyhit_work(scene, o, d, alive, t_min, t_max, chunk=2048):
-    """(sphere pairs, cluster boxes, triangle pairs) that the any-hit
-    kernel tests for these rays, as its loop visits them (measurement only,
-    brute force in chunks of live lanes): a lane stops at its first
-    blocking primitive, spheres first, then clusters in ascending order,
-    the 64 triangles of each box its segment enters."""
-    live = alive.nonzero()[:, 0]
-    o, d = o[live], d[live]
-    sph, tri = ch._pack_spheres(scene), ch._pack_tris(scene)
-    C = -(-scene.num_tris // ch.CLUSTER)
-    tri, clu = tri[:C * ch.CLUSTER], ch._cluster_aabbs(scene)[:C]
+def anyhit_work(scene, o, d, alive, t_min, t_max, warp=32, chunk=2048):
+    """What the any-hit kernel tests for these rays on a scene with
+    triangles, as its warps visit them (measurement only, brute force in
+    chunks of live lanes) → dict of sphere pairs, super boxes, cluster
+    boxes and triangle pairs, and the ``flat_clusters`` and ``flat_pairs``
+    of a sweep without supers (the kernel before it ran on the traversal
+    core).
+
+    A live lane tests the valid spheres in id order up to the first that
+    blocks it; a lane a sphere blocks is done. The others take the groups
+    of GROUP clusters in ascending order while unblocked: at a group's
+    start a lane tests its supers and the clusters of the supers it enters
+    before the segment's end. The warp (``warp`` consecutive lanes) walks
+    the union of the entered clusters in ascending order; a cluster's
+    entering lanes are those that entered it and were not blocked before
+    it, so a lane is done from the first cluster in which a test blocks it.
+    Where at least DENSE_LANES lanes enter a cluster, each tests its
+    triangles up to the first that blocks it; where fewer do, the warp
+    issues the 64 tests of each entering ray."""
+    planes = ch.scene_planes(scene)
+    C = planes.n_clusters
+    sph, sup = planes.sph, planes.sup
+    clu, geo = planes.clu[:C], planes.geo[:C * ch.CLUSTER]
     sc, (r2,), sv = ch._cols(sph, 0, 3), ch._cols(sph, 3, 4), sph[None, :, 4]
     sv = sv > 0.5
-    ta, te1, te2, tn_ = (ch._cols(tri, 0, 3), ch._cols(tri, 3, 6),
-                         ch._cols(tri, 6, 9), ch._cols(tri, 9, 12))
-    lo, hi = ch._cols(clu, 0, 3), ch._cols(clu, 3, 6)
+    n_valid, seen_valid = sv.sum(), sv.cumsum(1)[0]
+    segs = _segments(0, C)
+    s_idx = torch.tensor([s for s, _, _, _ in segs], device=o.device)
+    s_len = torch.tensor([hi - lo for _, lo, hi, _ in segs], device=o.device)
+    s_at = torch.tensor([at for _, _, _, at in segs], device=o.device)
     cid = torch.arange(C, device=o.device)
-    n_valid = sv.sum()
-    seen_valid = sv.cumsum(1)[0]          # valid spheres up to each index
-    totals = torch.zeros(3, dtype=torch.float64, device=o.device)
-    for s in range(0, o.shape[0], chunk):
-        oc, dc = _columns(o[s:s + chunk]), _columns(d[s:s + chunk])
+    n_warps = -(-o.shape[0] // warp)
+    entering = torch.zeros((n_warps, C), dtype=torch.int32, device=o.device)
+    own = torch.zeros((n_warps, C), dtype=torch.int32, device=o.device)
+    totals = torch.zeros(5, dtype=torch.float64, device=o.device)
+    live = alive.nonzero()[:, 0]
+    for s in range(0, live.numel(), chunk):
+        lanes = live[s:s + chunk]
+        oc, dc = _columns(o[lanes]), _columns(d[lanes])
         a_quad = (dc[0] * dc[0] + dc[1] * dc[1]) + dc[2] * dc[2]
         t_s, ok_s = ch._sphere_pairs(sc, r2, oc, dc, a_quad, t_min)
-        invd = tuple(1.0 / torch.where(x == 0.0, 1e-30, x) for x in dc)
-        tn, tf = ah._slab_pairs(lo, hi, oc, invd, t_min)
-        t_t, ok_t = ch._mt_pairs(ta, te1, te2, tn_, oc, dc, t_min)
         blk_s = ok_s & sv & (t_s < t_max)
-        by_sphere = blk_s.any(1)
-        spheres = torch.where(by_sphere,
-                              seen_valid[blk_s.int().argmax(1)], n_valid)
-        enter = (tf >= tn) & (tn < t_max)
-        blk_t = ok_t & (t_t < t_max) & enter.repeat_interleave(
-            ch.CLUSTER, 1)
-        by_tri = blk_t.any(1)
-        first = blk_t.int().argmax(1)
-        fc = first // ch.CLUSTER
-        boxes = torch.where(by_tri, fc + 1, C)
-        pairs = torch.where(
-            by_tri, ch.CLUSTER * (enter & (cid < fc[:, None])).sum(1)
-            + first % ch.CLUSTER + 1, ch.CLUSTER * enter.sum(1))
-        totals += torch.stack([spheres.sum(),
-                               torch.where(by_sphere, 0, boxes).sum(),
-                               torch.where(by_sphere, 0, pairs).sum()]
-                              ).to(torch.float64)
-    spheres, boxes, pairs = (int(x) for x in totals.tolist())
-    return dict(spheres=spheres, clusters=boxes, pairs=pairs)
+        go = ~blk_s.any(1)                       # not blocked by a sphere
+        spheres = torch.where(go, n_valid, seen_valid[blk_s.int().argmax(1)])
+        irr = tuple(1.0 / torch.where(x == 0.0, 1e-30, x) for x in dc)
+        ctn, ctf = ah._slab_pairs(ch._cols(clu, 0, 3), ch._cols(clu, 3, 6),
+                                  oc, irr, t_min)
+        c_enter = (ctf >= ctn) & (ctn < t_max)               # (r, C)
+        stn, stf = ah._slab_pairs(ch._cols(sup[s_idx], 0, 3),
+                                  ch._cols(sup[s_idx], 3, 6), oc, irr, t_min)
+        s_enter = (stf >= stn) & (stn < t_max)               # (r, segments)
+        t_t, ok_t = ch._mt_pairs(
+            *(ch._cols(geo, k, k + 3) for k in (0, 3, 6, 9)), oc, dc, t_min)
+        blk_t = (ok_t & (t_t < t_max)).view(-1, C, ch.CLUSTER)
+        del t_t, ok_t
+        hits = blk_t.any(2)
+        tests = torch.where(hits, blk_t.int().argmax(2) + 1, ch.CLUSTER)
+        blocking = c_enter & hits
+        first = torch.where(blocking.any(1), blocking.int().argmax(1), C)
+        part = c_enter & (cid <= first[:, None]) & go[:, None]
+        # a lane takes part in a group while unblocked at its start
+        at_start = go[:, None] & (first[:, None] >= s_at)
+        warps = lanes // warp
+        entering.index_add_(0, warps, part.int())
+        own.index_add_(0, warps, (part * tests).int())
+        # the sweep without supers: every cluster box up to the blocking
+        # one, the 64 tests of each entered box before it, then its own
+        swept = torch.where(first < C, first + 1, C)
+        flat_p = ch.CLUSTER * (c_enter & (cid < first[:, None])).sum(1) \
+            + torch.where(first < C, tests.gather(
+                1, first.clamp(max=C - 1)[:, None])[:, 0], 0)
+        totals += torch.stack([x.to(torch.float64) for x in (
+            spheres.sum(), at_start.sum(),
+            ((at_start & s_enter) * s_len).sum(),
+            torch.where(go, swept, 0).sum(),
+            torch.where(go, flat_p, 0).sum())])
+    dense = entering >= DENSE_LANES
+    pairs = int(own[dense].sum() + ch.CLUSTER * entering[~dense].sum())
+    spheres, supers, clusters, flat, flat_pairs = (
+        int(x) for x in totals.tolist())
+    return dict(spheres=spheres, supers=supers, clusters=clusters,
+                pairs=pairs, flat_clusters=flat, flat_pairs=flat_pairs)
 
 
 def work_bound(nbytes, work, supers=True):
     """bound() of a traversal's bytes and its counted sphere, box (block,
     super, cluster) and triangle tests; without ``supers`` the bound of the
     same rays' sweep without that level (``flat_clusters`` and
-    ``strict_pairs`` where the count has them)."""
+    ``flat_pairs`` where the count has them)."""
     if supers:
         boxes = (work.get("blocks", 0) + work.get("supers", 0)
                  + work["clusters"])
         pairs = work["pairs"]
     else:
         boxes = work.get("blocks", 0) + work["flat_clusters"]
-        pairs = work.get("strict_pairs", work["pairs"])
+        pairs = work.get("flat_pairs", work["pairs"])
     return bound(nbytes, OPS_PER_SPHERE * work["spheres"]
                  + OPS_PER_BOX * boxes + OPS_PER_TRIANGLE * pairs)
 
@@ -578,6 +639,23 @@ def phase0_device():
     return card
 
 
+def stack_and_spills(log):
+    """(function, stack frame bytes, spill store bytes, spill load bytes)
+    of every function ptxas reports in a build log (``-Xptxas -v``)."""
+    frames, fn = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and fn:
+            frames.append((fn, *(int(x) for x in m.groups())))
+            fn = None
+    return frames
+
+
 def phase1_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source
@@ -592,6 +670,12 @@ def phase1_build():
                            log.splitlines() if "Used" in ln or "spill" in ln)
         print(f"phase 1 build: {path.name} ({len(paths)} built together in "
               f"{secs:.2f} s) | {ptxas}", flush=True)
+        frames = stack_and_spills(log)
+        if name in TRAVERSAL and (not frames or any(
+                any(f[1:]) for f in frames)):
+            raise AssertionError(f"{name}: the traversal kernels must have "
+                                 f"0-byte stack frames and no spills, ptxas "
+                                 f"reports {frames}")
 
 
 def probe_inputs(scene, cam, n, seed, device):
@@ -701,7 +785,7 @@ def phase2_kernel_vs_plain(device, terrain):
           f"boxes, {work['clusters']} cluster boxes, {work['pairs']} "
           f"triangle pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
           f"({b['bytes']} B, {b['ops']} f32 ops); a sweep without supers "
-          f"{work['flat_clusters']} boxes, {work['strict_pairs']} pairs: "
+          f"{work['flat_clusters']} boxes, {work['flat_pairs']} pairs: "
           f"bound {flat['bound_ms']:.4f} ms", flush=True)
     print("phase 2 secondary rays: " + secondary_check(
         "closest-hit on terrain", scene, cam, ch.nearest_hit_attrs,
@@ -883,6 +967,79 @@ def primary_wavefront(scene, cam, device):
     return o, d
 
 
+def scatter_gate(label, fn, ids, g_soa, n_rows, g=None):
+    """Scatter-add wrapper ``fn(ids, g, n_rows)`` (``g`` its layout of the
+    SoA cotangents ``g_soa``) against the plain version's sum in float64:
+    each entry within SCATTER_RTOL of it plus SCATTER_ATOL of the sum of
+    |g| over the lanes it adds up → (max |diff|, report text, with the f32
+    plain version's own max |diff| beside). Raises past it."""
+    got = fn(ids, g_soa if g is None else g, n_rows)
+    exact = sc.scatter_rows_soa_reference(ids, g_soa.double(), n_rows)
+    mass = sc.scatter_rows_soa_reference(ids, g_soa.abs().double(), n_rows)
+    plain = sc.scatter_rows_soa_reference(ids, g_soa, n_rows)
+    torch.cuda.synchronize()
+    diff = (got.double() - exact).abs()
+    plain_diff = (plain.double() - exact).abs()
+    err = float(diff.max())
+    if bool((diff > SCATTER_RTOL * exact.abs() + SCATTER_ATOL * mass).any()):
+        raise AssertionError(f"scatter {label}: max |diff| {err} "
+                             f"(max |exact| {float(exact.abs().max())})")
+    live = int((ids < n_rows).sum())
+    rel = float((diff / mass.clamp(min=1e-300)).max())
+    plain_rel = float((plain_diff / mass.clamp(min=1e-300)).max())
+    return err, (f"{label} {live} live lanes max |diff| {err:.3g} (/ sum|g| "
+                 f"{rel:.3g}; plain f32 {float(plain_diff.max()):.3g}, / "
+                 f"sum|g| {plain_rel:.3g})")
+
+
+def scatter_times(ids, g_soa, n_rows):
+    """(kernel ms, index_add_ ms on a contiguous (R, W) source into
+    n_rows + 1 rows (the dropped id's lanes land in the extra one), the
+    same on the transposed view) of one scatter's inputs."""
+    g_rows = g_soa.T.contiguous()
+    acc = torch.zeros((n_rows + 1, g_soa.shape[0]), device=g_soa.device)
+    return (cuda_ms(lambda: sc.scatter_rows_soa(ids, g_soa, n_rows), 20),
+            cuda_ms(lambda: acc.index_add_(0, ids, g_rows), 20),
+            cuda_ms(lambda: acc.index_add_(0, ids, g_soa.T), 20))
+
+
+def winner_cotangents(scene, cam):
+    """What the winner-row backward hands the scatter-add on bounces 0 and
+    1 of one training step at the main path's settings (``train_setup``'s
+    start and target) → [(ids, g (26, R)), ...] in bounce order, n_rows.
+    Each scatter is matched to its bounce by its ids, which are the
+    forward's winners with the misses routed to n_rows."""
+    fwd, bwd = [], []
+    real_rows, real_scatter = intersect._nearest_rows, sc.scatter_rows_soa
+
+    def rows_spy(*args, **kw):
+        out = real_rows(*args, **kw)
+        fwd.append(out[1:])
+        return out
+
+    def scatter_spy(ids, g_soa, n_rows):
+        bwd.append((ids, g_soa, n_rows))
+        return real_scatter(ids, g_soa, n_rows)
+
+    scatter_spy.launches = 0  # the wrapper counts on its module's name
+
+    step_fn, args = train_setup(scene, cam)
+    intersect._nearest_rows, sc.scatter_rows_soa = rows_spy, scatter_spy
+    try:
+        step_fn(*args)
+    finally:
+        intersect._nearest_rows, sc.scatter_rows_soa = real_rows, real_scatter
+    n_rows = bwd[0][2]
+    out = []
+    for pid, miss in fwd[:2]:
+        want = torch.where(miss, n_rows, pid)
+        out += [(ids, g) for ids, g, _ in bwd if torch.equal(ids, want)][:1]
+    if len(out) != 2:
+        raise AssertionError("the training step's scatters do not match its "
+                             "bounces 0 and 1")
+    return out, n_rows
+
+
 def phase2b_scatter_vs_plain(device, terrain):
     scene, cam = terrain
     o, d = primary_wavefront(scene, cam, device)
@@ -895,49 +1052,52 @@ def phase2b_scatter_vs_plain(device, terrain):
     sparse = torch.where(torch.rand(R, generator=gen, device=device) < 0.05,
                          ids, n_rows)
     all_miss = torch.full_like(ids, n_rows)
-    cases = {"dense": (sc.scatter_rows_soa, ids, g),
-             "sparse": (sc.scatter_rows_soa, sparse, g),
-             "all-miss": (sc.scatter_rows_soa, all_miss, g),
-             "row-major": (sc.scatter_rows, ids, g.T.contiguous())}
+    real, real_rows = winner_cotangents(scene, cam)
+    if real_rows != n_rows:
+        raise AssertionError(f"the backward's table has {real_rows} rows")
+    cases = [("dense", sc.scatter_rows_soa, ids, g, None),
+             ("sparse", sc.scatter_rows_soa, sparse, g, None),
+             ("all-miss", sc.scatter_rows_soa, all_miss, g, None),
+             ("row-major", sc.scatter_rows, ids, g, g.T.contiguous())]
+    for b, (r_ids, r_g) in enumerate(real):
+        cases += [(f"real bounce {b}", sc.scatter_rows_soa, r_ids, r_g, None),
+                  (f"real bounce {b} row-major", sc.scatter_rows, r_ids, r_g,
+                   r_g.T.contiguous())]
     report, max_err = [], 0.0
-    for label, (fn, case_ids, case_g) in cases.items():
-        got = fn(case_ids, case_g, n_rows)
-        want = sc.scatter_rows_soa_reference(case_ids, g, n_rows)
-        mass = sc.scatter_rows_soa_reference(case_ids, g.abs(), n_rows)
-        torch.cuda.synchronize()
-        diff = (got - want).abs()
-        err = float(diff.max())
-        if bool((diff > SCATTER_RTOL * want.abs()
-                 + SCATTER_ATOL * mass).any()):
-            raise AssertionError(f"scatter {label}: max |diff| {err} "
-                                 f"(max |plain| {float(want.abs().max())})")
+    for label, fn, case_ids, case_g, layout in cases:
+        err, text = scatter_gate(label, fn, case_ids, case_g, n_rows, layout)
         max_err = max(max_err, err)
-        live = int((case_ids < n_rows).sum())
-        rel = float((diff / mass.clamp(min=1e-30)).max())
-        report.append(f"{label} {live} live lanes max |diff| {err} (max "
-                      f"|diff| / sum|g| {rel:.3g})")
+        report.append(text)
     again = [sc.scatter_rows_soa(ids, g, n_rows) for _ in range(2)]
     bit_equal = torch.equal(again[0], again[1])
     del again
-    ms = cuda_ms(lambda: sc.scatter_rows_soa(ids, g, n_rows), 20)
-    g_rows = cases["row-major"][2]
+    ms, library_ms, view_ms = scatter_times(ids, g, n_rows)
+    g_rows = cases[3][4]
     row_major_ms = cuda_ms(lambda: sc.scatter_rows(ids, g_rows, n_rows), 20)
     plain_ms = cuda_ms(lambda: sc.scatter_rows_soa_reference(ids, g, n_rows),
                        5)
-    # the library call: one index_add_ over every lane into n_rows + 1
-    # rows, the misses' id n_rows landing in the extra one
-    acc = torch.zeros((n_rows + 1, 26), device=device)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, ids, g.T), 20)
+    real_text = []
+    for b, (r_ids, r_g) in enumerate(real):
+        k_ms, l_ms, v_ms = scatter_times(r_ids, r_g, n_rows)
+        nonzero = float((r_g != 0).float().mean())
+        real_text.append(
+            f"bounce {b} ({int((r_ids < n_rows).sum())} live lanes, "
+            f"{nonzero:.1%} of entries nonzero): kernel {k_ms:.3f} ms, "
+            f"index_add_ {l_ms:.3f} ms (on the transposed view {v_ms:.3f} "
+            f"ms)")
     # ids and cotangents in, the table out; one add per live entry
     live = int((ids < n_rows).sum())
     b = bound(R * 4 * (1 + 26) + n_rows * 26 * 4, live * 26)
-    print(f"phase 2b scatter-add vs plain (terrain {W}x{H} primary winners, "
-          f"{n_rows} rows x 26): " + "; ".join(report)
+    print(f"phase 2b scatter-add vs exact (the plain version in float64; "
+          f"terrain {W}x{H} primary winners, {n_rows} rows x 26; real: the "
+          f"cotangents of one training step): "
+          + "; ".join(report)
           + f" | dense 1080p: kernel {ms:.3f} ms (its row-major form "
-          f"{row_major_ms:.3f} ms), plain {plain_ms:.3f} ms, "
-          f"index_add_ {library_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by "
-          f"{b['bound_by']}; two kernel runs bit-equal: {bit_equal}",
-          flush=True)
+          f"{row_major_ms:.3f} ms), plain "
+          f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms (on the "
+          f"transposed view {view_ms:.3f} ms), bound {b['bound_ms']:.4f} ms "
+          f"by {b['bound_by']}; two kernel runs bit-equal: {bit_equal} | "
+          f"real: " + "; ".join(real_text), flush=True)
     return dict(ms=ms, plain_ms=plain_ms, plain_rays=R, max_abs_err=max_err,
                 mismatches=0, library_ms=library_ms, **b)
 
@@ -1020,6 +1180,90 @@ def first_shadow_wavefront(scene, cam, params):
     return seen[0]
 
 
+def random_mesh(device, n_tris=2400, seed=3):
+    """n_tris random triangles with random materials and six spheres (the
+    random mesh of tests/test_blocked.py: 2,432 padded triangles)."""
+    rng = np.random.default_rng(seed)
+    b = rt.SceneBuilder()
+    for _ in range(n_tris):
+        c = rng.normal(size=3) * 4.0
+        v = c + rng.normal(size=(3, 3))
+        n = np.cross(v[1] - v[0], v[2] - v[0])
+        n /= max(np.linalg.norm(n), 1e-9)
+        b.add_mesh([tuple(x) for x in v], [tuple(n)] * 3, [0, 1, 2],
+                   albedo=tuple(rng.random(3)),
+                   smoothness=float(rng.random()))
+    for _ in range(6):
+        b.add_sphere(tuple(rng.normal(size=3) * 4.0), 0.5 + rng.random(),
+                     albedo=tuple(rng.random(3)))
+    return b.build(device=device)
+
+
+def tied(scene, n):
+    """``scene`` with triangles [n, 2n) made copies of [0, n): a ray that
+    hits one of a pair hits the other at the same t (n = 512: in the next
+    super; n = 1024: in the next 1024-triangle block)."""
+    fields = {f.name: getattr(scene, f.name)
+              for f in dataclasses.fields(scene)}
+    for k, v in fields.items():
+        if k.startswith("tri_") and isinstance(v, torch.Tensor):
+            v = v.clone()
+            v[n:2 * n] = v[0:n]
+            fields[k] = v
+    return dataclasses.replace(scene, **fields)
+
+
+def random_rays(n, seed, device, spread=8.0):
+    """n rays with normal origins (spread ``spread``) and directions."""
+    g = np.random.default_rng(seed)
+    o = torch.from_numpy(g.normal(size=(n, 3)) * spread).float()
+    return o.to(device), torch.from_numpy(g.normal(size=(n, 3))).float().to(
+        device)
+
+
+def secondary_rays(scene, n, seed, device):
+    """n rays as a bounce leaves them: origins uniform inside the bounds of
+    the scene's real triangles, random directions."""
+    g = np.random.default_rng(seed)
+    k = scene.num_tris
+    pts = torch.cat([scene.tri_v0[:k], scene.tri_v1[:k], scene.tri_v2[:k]])
+    lo, hi = pts.amin(0), pts.amax(0)
+    u = torch.from_numpy(g.random((n, 3))).float().to(device)
+    return (lo + u * (hi - lo)).contiguous(), torch.from_numpy(
+        g.normal(size=(n, 3))).float().to(device)
+
+
+def anyhit_cases(device):
+    """The any-hit kernel against its plain version on the scenes of the
+    streaming kernel's card test: the random mesh, its copies tied across
+    blocks and across supers, and the terrain at n=60, on 4096 random and
+    4096 secondary rays (70% alive), segments as they are and scaled by
+    0.1: 0 mismatches → report text."""
+    mesh = random_mesh(device)
+    scenes = {"mesh": mesh, "tied": tied(mesh, 1024),
+              "tied-supers": tied(mesh, 512),
+              "terrain60": terrain_scene(device, n=60)[0]}
+    alive = torch.from_numpy(np.random.default_rng(18).random(4096)
+                             < 0.7).to(device)
+    report = []
+    for name, scene in scenes.items():
+        for kind, (o, d) in (("random", random_rays(4096, 17, device)),
+                             ("secondary", secondary_rays(scene, 4096, 19,
+                                                          device))):
+            for scale in (1.0, 0.1):
+                got = ah.anyhit(scene, o, d * scale, 1e-4, ah.SHADOW_T_MAX,
+                                alive)
+                want = ah.anyhit_reference(scene, o, d * scale, 1e-4,
+                                           ah.SHADOW_T_MAX, alive)
+                mism = int((got != want).sum())
+                if mism or bool(got[~alive].any()):
+                    raise AssertionError(f"any-hit {name} {kind} x{scale}: "
+                                         f"{mism} mismatches")
+                report.append(f"{name} {kind}{'' if scale == 1.0 else ' x0.1'}"
+                              f" {int(got.sum())} blocked")
+    return "; ".join(report)
+
+
 def phase2c_anyhit_vs_plain(device, terrain, terrain_nee):
     scenes = {name: rt.builtin_scene(name, aspect=W / H, device=device)
               for name in ("room", "metal", "random_balls")}
@@ -1041,7 +1285,8 @@ def phase2c_anyhit_vs_plain(device, terrain, terrain_nee):
                           f"mism {int(got.sum())}/{int(alive.sum())} "
                           f"blocked")
     print(f"phase 2c any-hit vs plain ({PROBE_RAYS} segments): "
-          + "; ".join(report), flush=True)
+          + "; ".join(report) + " | 0 mism each on 4096 rays (70% alive): "
+          + anyhit_cases(device), flush=True)
 
     # the main path's shape: terrain_nee's 1080p bounce-0 shadow wavefront
     scene, cam = terrain_nee
@@ -1053,21 +1298,54 @@ def phase2c_anyhit_vs_plain(device, terrain, terrain_nee):
     if mism or bool(got[~alive].any()):
         raise AssertionError(f"any-hit 1080p shadow wavefront: {mism} "
                              f"mismatches")
+    b4 = bh.nearest_hit_blocked(scene, o, d, t_min, alive, False)[0] < t_max
+    b4_mism = int((got != b4).sum())
+    if b4_mism > MAX_ID_MISMATCHES:
+        raise AssertionError(f"any-hit vs streaming without rows on the 1080p "
+                             f"shadow wavefront: {b4_mism} mismatches")
     ms = cuda_ms(lambda: ah.anyhit(*args), 20)
+    b4_ms = cuda_ms(lambda: bh.nearest_hit_blocked(scene, o, d, t_min, alive,
+                                                   False), 20)
     plain_ms = cuda_ms(lambda: ah.anyhit_reference(*args), 1)
     work = anyhit_work(scene, o, d, alive, t_min, t_max)
-    # rays (7 f32) in, one bool out; the planes once
-    b = work_bound(o.shape[0] * (7 * 4 + 1) + anyhit_plane_bytes(scene),
-                   work)
+    # rays (o, d, alive: 25 bytes) in, one bool out; the sphere, geometry
+    # and box planes once
+    nbytes = o.shape[0] * 26 + plane_bytes(scene, attrs=False)
+    b, flat = work_bound(nbytes, work), work_bound(nbytes, work, False)
+    lib, planes = ah._library(), ch.scene_planes(scene)
+    shape = (planes.n_clusters, planes.sup.shape[0])
     print(f"phase 2c main-path shape (terrain_nee {W}x{H} bounce-0 shadow "
           f"rays, {int(alive.sum())} live, {int(got.sum())} blocked, {mism} "
-          f"mism): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; tested "
-          f"{work['spheres']} sphere pairs, {work['clusters']} boxes, "
-          f"{work['pairs']} triangle pairs: bound {b['bound_ms']:.4f} ms by "
-          f"{b['bound_by']} "
-          f"({b['bytes']} B, {b['ops']} f32 ops)", flush=True)
+          f"mism): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, streaming "
+          f"without rows {b4_ms:.3f} ms ({b4_mism} mism); "
+          f"{lib.rtt_anyhit_shared_bytes(*shape)} B of shared memory a "
+          f"block, {lib.rtt_anyhit_blocks_per_sm(*shape)} blocks an SM; "
+          f"tested {work['spheres']} sphere pairs, {work['supers']} super "
+          f"boxes, {work['clusters']} cluster boxes, {work['pairs']} triangle "
+          f"pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"({b['bytes']} B, {b['ops']} f32 ops); the sweep without supers "
+          f"{work['flat_clusters']} boxes, {work['flat_pairs']} pairs: bound "
+          f"{flat['bound_ms']:.4f} ms by {flat['bound_by']}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, plain_rays=o.shape[0],
                 max_abs_err=0.0, mismatches=mism, library_ms=None, **b)
+
+
+def train_setup(scene, cam):
+    """The training path's step at the main path's settings: Adam over
+    DEFAULT_TRAINABLE (``train_optimizer``), from the scene with its
+    albedos scaled by ALBEDO_START towards frame 0 of the true scene →
+    (step_fn, its first arguments: trainable, opt, start, basis, target,
+    frame)."""
+    params = rt.RenderParams(**PARAMS)
+    basis = rt.camera_basis(cam)
+    with torch.no_grad():  # the same frame, so the same sample streams
+        target = render_frame(scene, basis, params, 0)
+    start = dataclasses.replace(
+        scene, tri_albedo=scene.tri_albedo * ALBEDO_START,
+        sphere_albedo=scene.sphere_albedo * ALBEDO_START)
+    init_fn, step_fn = make_train_step(params, train_optimizer)
+    trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
+    return step_fn, (trainable, opt, start, basis, target, 0)
 
 
 def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
@@ -1080,15 +1358,8 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
     moved the scene); gradients finite, tri_v0's and tri_albedo's not all zero,
     the last loss below the first → (line, the launches summed over all
     steps)."""
-    params = rt.RenderParams(**PARAMS)
-    basis = rt.camera_basis(cam)
-    with torch.no_grad():  # the same frame, so the same sample streams
-        target = render_frame(scene, basis, params, 0)
-    start = dataclasses.replace(
-        scene, tri_albedo=scene.tri_albedo * ALBEDO_START,
-        sphere_albedo=scene.sphere_albedo * ALBEDO_START)
-    init_fn, step_fn = make_train_step(params, train_optimizer)
-    trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
+    step_fn, (trainable, opt, start, basis, target, _) = train_setup(scene,
+                                                                     cam)
     per_step = launches(**{hit: BOUNCES + 1, "scatter_rows": BOUNCES + 1})
     totals = dict.fromkeys(per_step, 0)
     losses, device_s, host_s = [], [], []
@@ -1313,7 +1584,47 @@ def phase7_nee_path(device, terrain_nee, card, profile, out_dir):
     return counts["any_hit"]
 
 
-def phase2d_blocked_vs_plain(device, terrain, large, large_nee):
+def past_64_blocks(device, huge):
+    """The streaming kernel on a scene of more than one round of block
+    boxes: the heightfield at n=520 (538,722 triangles, 66 blocks of
+    8192) against its plain version on 16,384 rays of its 1080p primary
+    wavefront and 16,384 secondary rays (0 mismatches, t and rows
+    bit-equal), the whole wavefront timed; and the any-hit kernel's
+    refusal of it (its boxes exceed shared memory) → report text."""
+    scene, cam = huge
+    o, d = primary_wavefront(scene, cam, device)
+    alive = torch.ones(W * H, dtype=torch.bool, device=device)
+    pick = torch.from_numpy(np.random.default_rng(7).choice(
+        W * H, 16_384, replace=False)).to(device)
+    so, sd = secondary_rays(scene, 16_384, 23, device)
+    report = []
+    for kind, (po, pd) in (("primary", (o[pick], d[pick])),
+                           ("secondary", (so, sd))):
+        live = alive[:po.shape[0]]
+        got = bh.nearest_hit_blocked(scene, po, pd, 1e-4, live)
+        ref = bh.nearest_hit_blocked_reference(scene, po, pd, 1e-4, live)
+        torch.cuda.synchronize()
+        mism, err, hits = compare(got, ref, live, f"66 blocks {kind}")
+        if mism:
+            raise AssertionError(f"66 blocks {kind}: {mism} mismatches")
+        report.append(f"{kind} 0 mism {hits} hits")
+    ms = cuda_ms(lambda: bh.nearest_hit_blocked(scene, o, d, 1e-4, alive), 10)
+    before, refused = ah.anyhit.launches, ""
+    try:
+        ah.anyhit(scene, so, sd)
+    except ValueError as e:
+        refused = str(e)
+    if "shared memory" not in refused or ah.anyhit.launches != before:
+        raise AssertionError(f"any-hit took a scene whose boxes exceed "
+                             f"shared memory: {refused!r}")
+    _, n_clusters, n_blocks = bh.block_layout(scene)
+    return (f"{scene.num_tris} tris, {n_blocks} blocks of {bh.BLOCK} "
+            f"({n_clusters} clusters): " + "; ".join(report)
+            + f" against plain on 16384 rays each; {W}x{H} primary "
+            f"wavefront {ms:.3f} ms; any-hit refuses it ({refused})")
+
+
+def phase2d_blocked_vs_plain(device, terrain, large, large_nee, huge):
     cases = [(name, rt.builtin_scene(name, aspect=W / H, device=device),
               bh.BLOCK) for name in ("room", "metal", "random_balls")]
     cases += [("terrain", terrain, bh.BLOCK), ("terrain/1024", terrain, 1024),
@@ -1397,6 +1708,8 @@ def phase2d_blocked_vs_plain(device, terrain, large, large_nee):
     print("phase 2d secondary rays: " + secondary_check(
         "streaming on terrain190k", *large, bh.nearest_hit_blocked,
         bh.nearest_hit_blocked_reference, device), flush=True)
+    print("phase 2d past 64 blocks: " + past_64_blocks(device, huge),
+          flush=True)
 
     # terrain190k_nee's 1080p bounce-0 shadow wavefront: any-hit vs the
     # streaming kernel without rows (the large-scene path's shadow query)
@@ -1495,6 +1808,7 @@ def main(argv):
     large = terrain_scene(device, n=LARGE_N)
     large_nee = terrain_scene(device, n=LARGE_N, with_lights=True)
     build_s = time.perf_counter() - t0
+    huge = terrain_scene(device, n=HUGE_N)
     timing = {"closest_hit": run("2", phase2_kernel_vs_plain, device,
                                  terrain),
               "scatter_rows": run("2b", phase2b_scatter_vs_plain, device,
@@ -1502,7 +1816,8 @@ def main(argv):
               "any_hit": run("2c", phase2c_anyhit_vs_plain, device, terrain,
                              terrain_nee),
               "blocked_hit": run("2d", phase2d_blocked_vs_plain, device,
-                                 terrain, large, large_nee)}
+                                 terrain, large, large_nee, huge)}
+    del huge
     torch.cuda.empty_cache()
     counts = {"closest_hit": run("3", phase3_main_path, device, terrain,
                                  card, args.profile, args.out)}

@@ -35,13 +35,16 @@
 // other lanes idle, and on a per-thread sorted block list in local memory.
 // What the design does about it (the traversal core is hit_common.cuh's,
 // shared with the closest-hit kernel):
-//   * the block boxes (at most 64 x 32 bytes) are staged into the thread
-//     block's shared memory once; every lane slab-tests them for its ray;
-//   * a warp visits blocks together, in the order of each block's nearest
-//     entry over the warp's lanes: lane b keeps block b's key (lane b again
-//     for block b + 32) in a register, the next block is a redux minimum and
-//     a ballot away, and the walk ends when the nearest block left starts
-//     past every live lane's best. No list, no sort, no local memory;
+//   * the block boxes are staged into the thread block's shared memory in
+//     rounds of 64 (2 KB); every lane slab-tests a round's boxes for its ray;
+//   * within a round a warp visits blocks together, in the order of each
+//     block's nearest entry over the warp's lanes: lane b keeps block b's
+//     key (lane b again for block b + 32) in a register, the next block is a
+//     redux minimum and a ballot away, and the round's walk ends when the
+//     nearest block left starts past every live lane's best. The best
+//     carries into the next round. No list, no sort, no local memory, and
+//     no bound on the number of blocks (the reference's streaming grid has
+//     none either);
 //   * on entering a block the warp stages its super and cluster boxes (16 +
 //     128 boxes, 4.6 KB) into its own box buffer by cp.async; the lanes that
 //     enter the block test supers, then the clusters of the supers they
@@ -52,14 +55,15 @@
 //     ray's 64 triangle tests (hit_common.cuh:test_cluster), which is where
 //     an incoherent wavefront spends its time.
 // Shared memory: 2 KB of block boxes plus 8 warps x (4,640 bytes of boxes +
-// 6,144 of tiles) = 88 KB, so two thread blocks fit an SM.
+// 6,144 of tiles) = 88 KB, so two thread blocks fit an SM. Rounds share the
+// 2 KB: every warp, its rays dead or not, takes each round's barriers.
 //
-// Ties: blocks are not visited in id order, so a candidate wins when
-// (t, id) is lexicographically smaller than the best, and a box is culled
-// only when it starts strictly farther than the best (tn <= best_t enters).
-// A lower-id triangle at an equal t in a block visited later still wins, so
-// the result does not depend on the visiting order: the lowest id wins a tie,
-// as in the closest-hit kernel and both plain versions.
+// Ties: blocks are not visited in id order within a round, so a candidate
+// wins when (t, id) is lexicographically smaller than the best, and a box is
+// culled only when it starts strictly farther than the best (tn <= best_t
+// enters). A lower-id triangle at an equal t in a block visited later still
+// wins, so the result does not depend on the visiting order: the lowest id
+// wins a tie, as in the closest-hit kernel and both plain versions.
 //
 // Numerics: the pair and box tests are hit_common.cuh's, shared with the
 // closest-hit kernel, so t and rows are bit-identical to the plain versions
@@ -71,7 +75,7 @@ using namespace rtt;
 
 namespace {
 
-constexpr int kMaxBlocks = 64;  // ops/blocked_hit.py:MAX_BLOCKS
+constexpr int kMaxBlocks = 64;  // block boxes a round stages: 2 keys a lane
 // a block's boxes are staged a page at a time: up to kPageClusters cluster
 // boxes and the supers over them (one more when the page starts inside one)
 constexpr int kPageClusters = 128;
@@ -100,8 +104,62 @@ __device__ __forceinline__ void visit_block(
     copy_wait<0>();
     __syncwarp();
     for (int g0 = p0; g0 < p1; g0 += kGroup)
-      visit_group(r, enter, t_min, lane, box_s, s0, clu_s, p0, g0,
-                  min(g0 + kGroup, p1), geo, SP, tiles, best_t, best);
+      visit_group<false>(r, enter, t_min, lane, box_s, s0, clu_s, p0, g0,
+                         min(g0 + kGroup, p1), geo, SP, tiles, best_t, best);
+  }
+}
+
+// The warp walks the n_round blocks whose boxes lie in blk_s (blocks b0 on)
+// nearest-first for its lanes, folding hits into each lane's best.
+__device__ __forceinline__ void visit_round(
+    const Ray& r, float t_min, int lane, const float4* blk_s, int b0,
+    int n_round, int n_clusters, int block_clusters,
+    const float* __restrict__ clu, const float* __restrict__ sup,
+    const float* __restrict__ geo, int SP, float4* box_s, float* tiles,
+    float* best_t, int* best) {
+  // ---- each block's nearest entry over the warp's lanes ------------------
+  // lane b keeps the key of block b in key_lo and of block b + 32 in key_hi
+  unsigned key_lo = kVisited, key_hi = kVisited;
+  float tn, tf;
+  for (int b = 0; b < n_round; ++b) {
+    unsigned key = kVisited;
+    if (r.alive) {
+      slab4(blk_s + 2 * b, r, t_min, &tn, &tf);
+      if (tf >= tn && tn <= *best_t) key = float_key(tn);
+    }
+    key = __reduce_min_sync(kFull, key);
+    if (lane == (b & 31)) {
+      if (b < 32) key_lo = key; else key_hi = key;
+    }
+  }
+  // ---- blocks, nearest first for the warp ---------------------------------
+  for (;;) {
+    const unsigned nearest = __reduce_min_sync(kFull, min(key_lo, key_hi));
+    if (nearest == kVisited) break;
+    // no block left starts nearer than this one for any lane: the walk ends
+    // once that is past the best of every live lane
+    const unsigned farthest_best =
+        __reduce_max_sync(kFull, r.alive ? float_key(*best_t) : 0u);
+    if (nearest > farthest_best) break;
+    int b;
+    const unsigned in_lo = __ballot_sync(kFull, key_lo == nearest);
+    if (in_lo) {
+      b = __ffs(in_lo) - 1;
+      if (lane == b) key_lo = kVisited;
+    } else {
+      b = __ffs(__ballot_sync(kFull, key_hi == nearest)) - 1;
+      if (lane == b) key_hi = kVisited;
+      b += 32;
+    }
+    bool enter = false;
+    if (r.alive) {
+      slab4(blk_s + 2 * b, r, t_min, &tn, &tf);
+      enter = tf >= tn && tn <= *best_t;
+    }
+    if (!__any_sync(kFull, enter)) continue;
+    visit_block(r, enter, t_min, lane, (b0 + b) * block_clusters,
+                min((b0 + b + 1) * block_clusters, n_clusters), clu, sup, geo,
+                SP, box_s, tiles, best_t, best);
   }
 }
 
@@ -120,69 +178,32 @@ blocked_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    float t_min, float* __restrict__ t_out,
                    int* __restrict__ id_out, float* __restrict__ rows) {
   extern __shared__ float4 shared[];
-  float4* blk_s = shared;  // kMaxBlocks boxes
+  float4* blk_s = shared;  // a round's kMaxBlocks boxes
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float4* box_s = blk_s + 2 * kMaxBlocks + warp * 2 * kPageBoxes;
   float* tiles =
       reinterpret_cast<float*>(blk_s + 2 * kMaxBlocks +
                                kWarps * 2 * kPageBoxes) +
       warp * 2 * kTileFloats;
-  copy_boxes_async(blk_s, blk, n_blocks, threadIdx.x, kThreads);
-  copy_commit();
-  copy_wait<0>();
-  __syncthreads();
-
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const Ray r = load_ray_rows(o, d, alive, R, i);
+  const bool warp_live = __any_sync(kFull, r.alive);
   float best_t = INFINITY;
   int best = -1;
-  if (__any_sync(kFull, r.alive)) {
-    // ---- spheres: the lowest ids, visited in id order ---------------------
-    if (r.alive) closest_sphere(sph, n_spheres, r, t_min, &best_t, &best);
-    // ---- top level: each block's nearest entry over the warp's lanes ------
-    // lane b keeps the key of block b in key_lo and of block b + 32 in key_hi
-    unsigned key_lo = kVisited, key_hi = kVisited;
-    float tn, tf;
-    for (int b = 0; b < n_blocks; ++b) {
-      unsigned key = kVisited;
-      if (r.alive) {
-        slab4(blk_s + 2 * b, r, t_min, &tn, &tf);
-        if (tf >= tn && tn <= best_t) key = float_key(tn);
-      }
-      key = __reduce_min_sync(kFull, key);
-      if (lane == (b & 31)) {
-        if (b < 32) key_lo = key; else key_hi = key;
-      }
-    }
-    // ---- blocks, nearest first for the warp -------------------------------
-    for (;;) {
-      const unsigned nearest = __reduce_min_sync(kFull, min(key_lo, key_hi));
-      if (nearest == kVisited) break;
-      // no block left starts nearer than this one for any lane: the walk ends
-      // once that is past the best of every live lane
-      const unsigned farthest_best =
-          __reduce_max_sync(kFull, r.alive ? float_key(best_t) : 0u);
-      if (nearest > farthest_best) break;
-      int b;
-      const unsigned in_lo = __ballot_sync(kFull, key_lo == nearest);
-      if (in_lo) {
-        b = __ffs(in_lo) - 1;
-        if (lane == b) key_lo = kVisited;
-      } else {
-        b = __ffs(__ballot_sync(kFull, key_hi == nearest)) - 1;
-        if (lane == b) key_hi = kVisited;
-        b += 32;
-      }
-      bool enter = false;
-      if (r.alive) {
-        slab4(blk_s + 2 * b, r, t_min, &tn, &tf);
-        enter = tf >= tn && tn <= best_t;
-      }
-      if (!__any_sync(kFull, enter)) continue;
-      visit_block(r, enter, t_min, lane, b * block_clusters,
-                  min((b + 1) * block_clusters, n_clusters), clu, sup, geo,
-                  SP, box_s, tiles, &best_t, &best);
-    }
+  // ---- spheres: the lowest ids, visited in id order -----------------------
+  if (r.alive) closest_sphere(sph, n_spheres, r, t_min, &best_t, &best);
+  for (int b0 = 0; b0 < n_blocks; b0 += kMaxBlocks) {
+    const int n_round = min(kMaxBlocks, n_blocks - b0);
+    if (b0) __syncthreads();  // every warp is done with the round before
+    copy_boxes_async(blk_s, blk + b0 * kBoxCols, n_round, threadIdx.x,
+                     kThreads);
+    copy_commit();
+    copy_wait<0>();
+    __syncthreads();
+    if (warp_live)
+      visit_round(r, t_min, lane, blk_s, b0, n_round, n_clusters,
+                  block_clusters, clu, sup, geo, SP, box_s, tiles, &best_t,
+                  &best);
   }
   if (i < R)
     write_hit(i, R, best_t, best, SP, sph, tri, copy_map, t_out, id_out,
@@ -217,14 +238,14 @@ int rtt_blocked_hit_blocks_per_sm(int want_attrs) {
 }
 
 // Launches the kernel on `stream` and returns the CUDA error (0 = ok), or
-// cudaErrorInvalidValue without launching when n_blocks > kMaxBlocks or
-// block_clusters < 1. All pointers are device pointers to contiguous arrays:
+// cudaErrorInvalidValue without launching when block_clusters < 1. All
+// pointers are device pointers to contiguous arrays:
 //   o, d (R, 3) f32; alive (R,) bytes or null (all alive); sph (SP, 16) f32,
 //   its first n_spheres rows the real spheres; geo (TP, 12) f32; tri
-//   (TP, 32) f32; clu (>= n_clusters, 8)
-//   f32; sup (ceil(n_clusters / 8), 8) f32, super s spanning clusters
-//   [8 s, 8 s + 8); blk (>= n_blocks, 8) f32, block b spanning clusters
-//   [b * block_clusters, (b + 1) * block_clusters); copy_map (2, 26) i32;
+//   (TP, 32) f32; clu (>= n_clusters, 8) f32; sup (ceil(n_clusters / 8), 8)
+//   f32, super s spanning clusters [8 s, 8 s + 8); blk (>= n_blocks, 8)
+//   f32, block b spanning clusters [b * block_clusters, (b + 1) *
+//   block_clusters); copy_map (2, 26) i32;
 //   t_out (R,) f32; id_out (R,) i32; rows (26, R) f32, written only when
 //   want_attrs != 0.
 int rtt_blocked_hit(const float* o, const float* d,
@@ -235,8 +256,7 @@ int rtt_blocked_hit(const float* o, const float* d,
                     int block_clusters, const int* copy_map, float t_min,
                     int want_attrs, float* t_out, int* id_out, float* rows,
                     void* stream) {
-  if (n_blocks > kMaxBlocks || block_clusters < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (block_clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return 0;
   auto kernel = want_attrs ? blocked_hit_kernel<true>
                            : blocked_hit_kernel<false>;

@@ -94,9 +94,9 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
     if (__any_sync(kFull, r.alive)) {
       if (r.alive) closest_sphere(sph, n_spheres, r, t_min, &best_t, &best);
       for (int g0 = 0; g0 < n_clusters; g0 += kGroup)
-        visit_group(r, r.alive, t_min, lane, sup_s, 0, clu_s, 0, g0,
-                    min(g0 + kGroup, n_clusters), geo, SP, tiles, &best_t,
-                    &best);
+        visit_group<false>(r, r.alive, t_min, lane, sup_s, 0, clu_s, 0, g0,
+                           min(g0 + kGroup, n_clusters), geo, SP, tiles,
+                           &best_t, &best);
     }
   }
   if (i < R)

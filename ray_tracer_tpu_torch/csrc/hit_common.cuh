@@ -1,7 +1,6 @@
 // Shared device code of the port's ray-query kernels (closest_hit.cu,
 // anyhit.cu, blocked_hit.cu): plane layouts, the ray loads, the sphere, box
-// and triangle tests, and the warp-cooperative traversal core of the two
-// closest-hit kernels.
+// and triangle tests, and the warp-cooperative traversal core of all three.
 //
 // Every expression keeps the association of the plain PyTorch versions
 // (ops/closest_hit.py:_sphere_pairs and _mt_pairs, ops/anyhit.py:_slab_pairs,
@@ -10,8 +9,10 @@
 // libraries are built with -fmad=false and without --use_fast_math
 // (utils/build.py), so each test rounds as the plain version's does.
 //
-// The traversal core (visit_group and below) is what closest_hit.cu and
-// blocked_hit.cu share. One warp works on its 32 rays together:
+// The traversal core (visit_group and below) answers two kinds of query,
+// a template argument: the closest hit (closest_hit.cu, blocked_hit.cu) and
+// whether anything blocks a shadow segment (anyhit.cu). One warp works on
+// its 32 rays together:
 //   * boxes are read from shared memory as float4 pairs; the caller stages
 //     them there with cp.async (16 bytes a thread);
 //   * over a group of up to 32 clusters every lane slab-tests the group's
@@ -25,13 +26,18 @@
 //     the 64 triangles (float4 broadcast reads); where fewer do, the warp
 //     takes the entering rays one at a time, all 32 lanes testing two
 //     triangles each against the ray (rows at a 48-byte stride: float4
-//     reads without bank conflicts), and reduces to the closest (redux).
+//     reads without bank conflicts), and reduces to the closest (redux) or,
+//     for a shadow query, to whether any test blocks (one ballot).
 //     A sparse or incoherent wavefront so costs ~100 instructions per
 //     (ray, cluster) instead of 64 triangle tests with most lanes idle.
-// A candidate wins when (t, id) is lexicographically smaller than the best,
-// and a box is culled only when it starts strictly farther than the best
-// (tn <= best_t enters), so the result does not depend on the visiting
-// order or on which lane tests a pair: the lowest id wins a t-tie.
+// Closest hit: a candidate wins when (t, id) is lexicographically smaller
+// than the best, and a box is culled only when it starts strictly farther
+// than the best (tn <= best_t enters), so the result does not depend on the
+// visiting order or on which lane tests a pair: the lowest id wins a t-tie.
+// Shadow query: a box is entered when it starts before the segment's end
+// (tn < t_max, the plain version's rule), a lane stops testing at its first
+// blocking triangle and leaves the live lanes, and the walk ends once no
+// live lane is unblocked. Blocking is an OR, so the order does not matter.
 
 #pragma once
 
@@ -72,21 +78,6 @@ __device__ __forceinline__ void set_inverse(Ray* r) {
   r->invdx = 1.0f / (r->dx == 0.0f ? 1e-30f : r->dx);
   r->invdy = 1.0f / (r->dy == 0.0f ? 1e-30f : r->dy);
   r->invdz = 1.0f / (r->dz == 0.0f ? 1e-30f : r->dz);
-}
-
-// rays: (7, R) SoA rows ox oy oz dx dy dz alive
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int R,
-                                        int i) {
-  Ray r;
-  r.ox = rays[i];
-  r.oy = rays[R + i];
-  r.oz = rays[2 * R + i];
-  r.dx = rays[3 * R + i];
-  r.dy = rays[4 * R + i];
-  r.dz = rays[5 * R + i];
-  r.alive = rays[6 * R + i] > 0.5f;
-  set_inverse(&r);
-  return r;
 }
 
 // Ray i of o, d (R, 3) and alive (R,) bytes, null for all alive, as the
@@ -160,14 +151,6 @@ __device__ __forceinline__ void slab_bounds(float lox, float loy, float loz,
   *tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
 }
 
-// ... of a box plane row [lo(0:3) | hi(3:6)] in global memory
-__device__ __forceinline__ void slab(const float* __restrict__ box,
-                                     const Ray& r, float t_min, float* tn,
-                                     float* tf) {
-  slab_bounds(box[0], box[1], box[2], box[3], box[4], box[5], r, t_min, tn,
-              tf);
-}
-
 // ... of a box plane row held as two float4 (shared memory)
 __device__ __forceinline__ void slab4(const float4* box, const Ray& r,
                                       float t_min, float* tn, float* tf) {
@@ -197,15 +180,6 @@ __device__ __forceinline__ bool triangle_test(
   *t_out = t;
   return det >= kDetEps && t >= t_min && u >= 0.0f && v >= 0.0f &&
          u + v <= 1.0f;
-}
-
-// ... against the triangle plane row q: a(0:3) e1(3:6) e2(6:9) n(9:12) ...
-// in global memory
-__device__ __forceinline__ bool triangle_hit(const float* __restrict__ q,
-                                             const Ray& r, float t_min,
-                                             float* t_out) {
-  return triangle_test(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8],
-                       q[9], q[10], q[11], r, t_min, t_out);
 }
 
 // ... against a geometry row held as three float4 (shared memory)
@@ -308,11 +282,27 @@ __device__ __forceinline__ bool closer(float t, int id, float best_t,
   return t < best_t || (t == best_t && id < best);
 }
 
+// Whether a box the ray is inside for t in [tn, tf] (tf >= tn) is entered:
+// by a closest-hit query unless it starts farther than the best so far,
+// `bound` (tn <= best_t: an equal-t hit of a lower id is still found); by a
+// shadow query unless it starts at or past the segment's end, `bound`
+// (tn < t_max, the rule of ops/anyhit.py:anyhit_reference).
+template <bool kAny>
+__device__ __forceinline__ bool enters(float tn, float tf, float bound) {
+  return kAny ? (tf >= tn && tn < bound) : (tf >= tn && tn <= bound);
+}
+
 // The warp tests the cluster whose geometry rows lie in `tile` (shared) and
 // whose first triangle has id id0, for the lanes of `entering` (warp-uniform,
-// not 0; `enter` is this lane's bit), and folds the hits into each entering
-// lane's (best_t, best). All 32 lanes call it. Rows of padding in the
-// scene's last cluster are degenerate triangles and hit nothing.
+// not 0; `enter` is this lane's bit). All 32 lanes call it. Rows of padding
+// in the scene's last cluster are degenerate triangles and hit nothing.
+//   closest hit (kAny false): the hits are folded into each entering lane's
+//     (best_t, best);
+//   shadow query (kAny true): *best_t is the segment's end t_max, which
+//     does not change, and *best becomes 1 at the lane's first blocking hit
+//     (t < t_max). A dense lane stops testing there; the shared branch
+//     answers each entering ray with one ballot, no minimum and no id.
+template <bool kAny>
 __device__ __forceinline__ void test_cluster(const float* tile, int id0,
                                              unsigned entering, bool enter,
                                              const Ray& r, float t_min,
@@ -324,22 +314,30 @@ __device__ __forceinline__ void test_cluster(const float* tile, int id0,
     if (enter) {
       float t;
       for (int k = 0; k < kCluster; ++k) {
-        if (triangle_hit4(q[3 * k], q[3 * k + 1], q[3 * k + 2], r, t_min,
-                          &t) &&
-            closer(t, id0 + k, *best_t, *best)) {
-          *best_t = t;
-          *best = id0 + k;
+        if constexpr (kAny) {
+          if (triangle_hit4(q[3 * k], q[3 * k + 1], q[3 * k + 2], r, t_min,
+                            &t) &&
+              t < *best_t) {
+            *best = 1;
+            break;
+          }
+        } else {
+          if (triangle_hit4(q[3 * k], q[3 * k + 1], q[3 * k + 2], r, t_min,
+                            &t) &&
+              closer(t, id0 + k, *best_t, *best)) {
+            *best_t = t;
+            *best = id0 + k;
+          }
         }
       }
     }
     return;
   }
   // few lanes: the entering rays one at a time, lane l testing triangles l
-  // and l + 32 against the ray; the closest by redux, the lowest id on a tie
+  // and l + 32 against the ray
   const float4 a0 = q[3 * lane], a1 = q[3 * lane + 1], a2 = q[3 * lane + 2];
   const float4 b0 = q[3 * (lane + 32)], b1 = q[3 * (lane + 32) + 1],
                b2 = q[3 * (lane + 32) + 2];
-  const unsigned never = float_key(INFINITY);
   while (entering) {
     const int j = __ffs(entering) - 1;
     entering &= entering - 1;
@@ -351,22 +349,33 @@ __device__ __forceinline__ void test_cluster(const float* tile, int id0,
     rj.dy = __shfl_sync(kFull, r.dy, j);
     rj.dz = __shfl_sync(kFull, r.dz, j);
     float t0, t1;
-    if (!triangle_hit4(a0, a1, a2, rj, t_min, &t0)) t0 = INFINITY;
-    if (!triangle_hit4(b0, b1, b2, rj, t_min, &t1)) t1 = INFINITY;
-    const unsigned k_min =
-        __reduce_min_sync(kFull, min(float_key(t0), float_key(t1)));
-    if (k_min == never) continue;
-    const float t = key_float(k_min);
-    int id;
-    const unsigned w0 = __ballot_sync(kFull, t0 == t);
-    if (w0) {
-      id = id0 + __ffs(w0) - 1;
+    if constexpr (kAny) {
+      // blocked when any of the 64 tests hits before the segment's end
+      const bool h0 = triangle_hit4(a0, a1, a2, rj, t_min, &t0) &&
+                      t0 < *best_t;
+      const bool h1 = triangle_hit4(b0, b1, b2, rj, t_min, &t1) &&
+                      t1 < *best_t;
+      if (__any_sync(kFull, h0 || h1) && lane == j) *best = 1;
     } else {
-      id = id0 + 32 + __ffs(__ballot_sync(kFull, t1 == t)) - 1;
-    }
-    if (lane == j && closer(t, id, *best_t, *best)) {
-      *best_t = t;
-      *best = id;
+      // the closest by redux, the lowest id on a tie
+      const unsigned never = float_key(INFINITY);
+      if (!triangle_hit4(a0, a1, a2, rj, t_min, &t0)) t0 = INFINITY;
+      if (!triangle_hit4(b0, b1, b2, rj, t_min, &t1)) t1 = INFINITY;
+      const unsigned k_min =
+          __reduce_min_sync(kFull, min(float_key(t0), float_key(t1)));
+      if (k_min == never) continue;
+      const float t = key_float(k_min);
+      int id;
+      const unsigned w0 = __ballot_sync(kFull, t0 == t);
+      if (w0) {
+        id = id0 + __ffs(w0) - 1;
+      } else {
+        id = id0 + 32 + __ffs(__ballot_sync(kFull, t1 == t)) - 1;
+      }
+      if (lane == j && closer(t, id, *best_t, *best)) {
+        *best_t = t;
+        *best = id;
+      }
     }
   }
 }
@@ -385,12 +394,15 @@ __device__ __forceinline__ void copy_cluster_async(
 }
 
 // The warp visits the clusters [g0, g1) (at most kGroup of them) for its 32
-// rays; all 32 lanes call it, `live` marking the lanes that take part.
+// rays; all 32 lanes call it, `live` marking the lanes that take part
+// (for a shadow query: alive and not yet blocked).
 //   sup_s, clu_s: shared-memory boxes (two float4 each) of the supers from
 //     s_base on and of the clusters from c_base on; super s spans clusters
 //     [8 s, 8 s + 8), clipped here to [g0, g1);
 //   geo: the (TP, 12) geometry plane in global memory; SP: the id of
-//     triangle 0; tiles: the warp's two tile buffers (2 kTileFloats floats).
+//     triangle 0; tiles: the warp's two tile buffers (2 kTileFloats floats);
+//   best_t, best: the lane's state, as test_cluster<kAny> says.
+template <bool kAny>
 __device__ __forceinline__ void visit_group(
     const Ray& r, bool live, float t_min, int lane, const float4* sup_s,
     int s_base, const float4* clu_s, int c_base, int g0, int g1,
@@ -402,11 +414,11 @@ __device__ __forceinline__ void visit_group(
     float tn, tf;
     for (int s = g0 / kSuper; s <= (g1 - 1) / kSuper; ++s) {
       slab4(sup_s + 2 * (s - s_base), r, t_min, &tn, &tf);
-      if (!(tf >= tn && tn <= *best_t)) continue;
+      if (!enters<kAny>(tn, tf, *best_t)) continue;
       const int c_end = min((s + 1) * kSuper, g1);
       for (int c = max(s * kSuper, g0); c < c_end; ++c) {
         slab4(clu_s + 2 * (c - c_base), r, t_min, &tn, &tf);
-        if (tf >= tn && tn <= *best_t) mine |= 1u << (c - g0);
+        if (enters<kAny>(tn, tf, *best_t)) mine |= 1u << (c - g0);
       }
     }
   }
@@ -427,18 +439,30 @@ __device__ __forceinline__ void visit_group(
       copy_wait<0>();
     }
     __syncwarp();  // every lane's chunks of the current tile have landed
-    // the best may have come closer since the mask was made: test again
     bool enter = false;
     if ((mine >> cur) & 1u) {
-      float tn, tf;
-      slab4(clu_s + 2 * (g0 + cur - c_base), r, t_min, &tn, &tf);
-      enter = tf >= tn && tn <= *best_t;
+      if constexpr (kAny) {
+        enter = !*best;  // the segment's end stays: only a block since
+      } else {
+        // the best may have come closer since the mask was made: test again
+        float tn, tf;
+        slab4(clu_s + 2 * (g0 + cur - c_base), r, t_min, &tn, &tf);
+        enter = tf >= tn && tn <= *best_t;
+      }
     }
     const unsigned entering = __ballot_sync(kFull, enter);
     if (entering)
-      test_cluster(tiles + buf * kTileFloats, SP + (g0 + cur) * kCluster,
-                   entering, enter, r, t_min, lane, best_t, best);
+      test_cluster<kAny>(tiles + buf * kTileFloats,
+                         SP + (g0 + cur) * kCluster, entering, enter, r,
+                         t_min, lane, best_t, best);
     __syncwarp();  // the tile is free for the copy after next
+    if constexpr (kAny) {
+      // every live lane blocked: the walk ends, its copy in flight landed
+      if (!__any_sync(kFull, live && !*best)) {
+        copy_wait<0>();
+        return;
+      }
+    }
     cur = next;
     buf ^= 1;
   }

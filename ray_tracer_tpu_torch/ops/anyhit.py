@@ -8,11 +8,14 @@ triangle is hit with t in ``[t_min, t_max)``, t in units of |d| (so d
 spans the shadow segment). Dead lanes are False. The tests are the
 closest-hit kernel's (``closest_hit._sphere_pairs``, ``_mt_pairs``) plus
 ``t < t_max``, and the cluster culling is its slab test with ``t_max`` in
-place of the running best.
+place of the running best. The kernel runs on the closest-hit kernels'
+traversal core (supers, shared-memory boxes, warp tiles), which keeps the
+scene's boxes in shared memory as the closest-hit kernel does.
 
   * ``anyhit`` — the wrapper: launches the kernel for CUDA tensors; the
     plain version runs only for tensors on the CPU. Anything the kernel
-    does not take raises. ``anyhit.launches`` counts kernel launches.
+    does not take, or a scene whose boxes do not fit into its shared
+    memory, raises. ``anyhit.launches`` counts kernel launches.
   * ``anyhit_reference`` — the plain version: every sphere, then every
     triangle of the real clusters that the ray's segment enters, in ray
     chunks under ``ops/intersect._PAIR_BUDGET``.
@@ -31,9 +34,9 @@ import torch
 
 from ..scene import Scene
 from . import intersect
-from .closest_hit import (CLUSTER, _check_inputs, _cluster_aabbs, _cols,
-                          _mt_pairs, _pack_spheres, _pack_tris,
-                          _sphere_pairs, scene_planes)
+from .closest_hit import (CLUSTER, _check_inputs, _check_shared,
+                          _cluster_aabbs, _cols, _mt_pairs, _pack_spheres,
+                          _pack_tris, _ray_args, _sphere_pairs, scene_planes)
 
 # end of the shadow segment, in units of |d|: stops short of the light's
 # own surface (the reference's occluded)
@@ -97,21 +100,15 @@ def _library() -> ctypes.CDLL:
     from ..utils import build
     lib = build.load("anyhit")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtt_anyhit.argtypes = [p, i, p, i, i, p, p, i, f, f, p, p]
+    lib.rtt_anyhit.argtypes = [p, p, p, i, p, i, p, p, i, p, i, f, f, p, p]
     lib.rtt_anyhit.restype = i
+    lib.rtt_anyhit_shared_bytes.argtypes = [i, i]
+    lib.rtt_anyhit_shared_bytes.restype = i
+    lib.rtt_anyhit_blocks_per_sm.argtypes = [i, i]
+    lib.rtt_anyhit_blocks_per_sm.restype = i
     lib.rtt_anyhit_error_string.argtypes = [i]
     lib.rtt_anyhit_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _rays_soa(o, d, alive):
-    """The kernel's (7, R) float32 ray block: rows ox oy oz dx dy dz and
-    alive (1.0 or 0.0), detached."""
-    rays = torch.empty((7, o.shape[0]), dtype=torch.float32, device=o.device)
-    rays[0:3] = o.detach().T
-    rays[3:6] = d.detach().T
-    rays[6] = 1.0 if alive is None else alive.to(torch.float32)
-    return rays
 
 
 def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
@@ -119,10 +116,11 @@ def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
     o + t·d → (R,) bool; dead lanes False.
 
     CUDA tensors launch the kernel (built at first use); CPU tensors take
-    the plain version; any other device, or input the kernel does not
-    take, raises. Nothing falls back silently. The scene's packed planes
-    come from ``closest_hit.scene_planes``' cache, under its contract: a scene tensor
-    written behind autograd's back needs ``clear_plane_cache()``."""
+    the plain version; any other device, input the kernel does not take,
+    or a scene whose boxes do not fit into the kernel's shared memory
+    raises. Nothing falls back silently. The scene's packed planes come
+    from ``closest_hit.scene_planes``' cache, under its contract: a scene
+    tensor written behind autograd's back needs ``clear_plane_cache()``."""
     if o.device.type == "cpu":
         return anyhit_reference(scene, o, d, t_min, t_max, alive)
     if o.device.type != "cuda":
@@ -133,15 +131,17 @@ def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
     if R == 0:
         return out
     lib = _library()
-    rays = _rays_soa(o, d, alive)
     planes = scene_planes(scene)   # packed once per scene (closest_hit.py)
+    n_clusters, n_supers = planes.n_clusters, planes.sup.shape[0]
+    _check_shared("any-hit", lib.rtt_anyhit_shared_bytes(n_clusters, n_supers),
+                  n_clusters)
+    (o, d, alive), ray_ptrs = _ray_args(o, d, alive)
     with torch.cuda.device(dev):
         err = lib.rtt_anyhit(
-            rays.data_ptr(), R, planes.sph.data_ptr(), scene.padded_spheres,
-            int(scene.num_spheres > 0), planes.tri.data_ptr(),
-            planes.clu.data_ptr(), planes.n_clusters, float(t_min),
-            float(t_max), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *ray_ptrs, R, planes.sph.data_ptr(), scene.num_spheres,
+            planes.geo.data_ptr(), planes.clu.data_ptr(), n_clusters,
+            planes.sup.data_ptr(), n_supers, float(t_min), float(t_max),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("any-hit kernel launch failed: "
                            + lib.rtt_anyhit_error_string(err).decode())

@@ -34,7 +34,6 @@ from .closest_hit import (CLUSTER, REFERENCE_CHUNK, _check_inputs, _cols,
                           _sphere_pairs, scene_planes)
 
 BLOCK = 8192       # triangles per block (the reference's KConfig.tri_block)
-MAX_BLOCKS = 64    # two block keys a lane (the kernel's kMaxBlocks)
 # The reference's crossover (pallas_intersect.py:131-136, 1954-1962): its
 # resident kernel keeps the triangle planes in VMEM at 128 lanes x 4 bytes a
 # row within a 12 MB budget, so scenes of more than 24,576 padded triangles
@@ -130,12 +129,12 @@ def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
     prim_id (R,) int32, rows (26, R)) with ``want_attrs``, else
     (t, prim_id): the closest-hit kernel's outputs.
 
-    CUDA tensors launch the kernel (built at first use); CPU tensors take
-    the plain version; any other device, input the kernel does not take,
-    or a scene of more than ``MAX_BLOCKS`` blocks raises. Nothing falls
-    back silently. The scene's packed planes come from
-    ``closest_hit.scene_planes``' cache, under its contract: a scene tensor
-    written behind autograd's back needs ``clear_plane_cache()``."""
+    CUDA tensors launch the kernel (built at first use), for any number
+    of blocks; CPU tensors take the plain version; any other device or
+    input the kernel does not take raises. Nothing falls back silently.
+    The scene's packed planes come from ``closest_hit.scene_planes``'
+    cache, under its contract: a scene tensor written behind autograd's
+    back needs ``clear_plane_cache()``."""
     if o.device.type == "cpu":
         return nearest_hit_blocked_reference(scene, o, d, t_min, alive,
                                              want_attrs, block)
@@ -144,9 +143,6 @@ def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
                          f"{o.device}")
     _check_inputs(scene, o, d, alive)
     block_clusters, n_clusters, n_blocks = block_layout(scene, block)
-    if n_blocks > MAX_BLOCKS:
-        raise ValueError(f"{scene.num_tris} triangles make {n_blocks} blocks "
-                         f"of {block}; the kernel takes at most {MAX_BLOCKS}")
     R, dev = o.shape[0], o.device
     t_out, id_out, rows = _hit_outputs(R, dev, want_attrs)
     if R == 0:

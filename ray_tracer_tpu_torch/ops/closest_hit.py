@@ -373,6 +373,20 @@ def _check_inputs(scene: Scene, o, d, alive):
 MAX_SHARED_BYTES = 232_448
 
 
+def _check_shared(kernel: str, shared: int, n_clusters: int):
+    """Raise where a kernel that keeps a scene's boxes in shared memory
+    (the closest-hit and any-hit kernels) would need ``shared`` bytes, more
+    than a thread block can take."""
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the {kernel} kernel keeps a scene's boxes in shared memory: "
+            f"{n_clusters} clusters need {shared} bytes of the card's "
+            f"{MAX_SHARED_BYTES}; the streaming kernel "
+            f"(blocked_hit.nearest_hit_blocked, which "
+            f"intersect.occluded_kernels takes for shadow rays past the "
+            f"crossover) takes such scenes")
+
+
 def _ray_args(o, d, alive):
     """The kernels' ray arguments: o, d and alive detached and contiguous
     (the kernels read them as the renderer holds them: no copy), and their
@@ -417,13 +431,9 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
     lib = _library()
     planes = scene_planes(scene)
     n_clusters, n_supers = planes.n_clusters, planes.sup.shape[0]
-    shared = lib.rtt_closest_hit_shared_bytes(n_clusters, n_supers)
-    if shared > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"the closest-hit kernel keeps a scene's boxes in shared "
-            f"memory: {n_clusters} clusters need {shared} bytes of the "
-            f"card's {MAX_SHARED_BYTES}; the streaming kernel "
-            f"(blocked_hit.nearest_hit_blocked) takes such scenes")
+    _check_shared("closest-hit",
+                  lib.rtt_closest_hit_shared_bytes(n_clusters, n_supers),
+                  n_clusters)
     (o, d, alive), ray_ptrs = _ray_args(o, d, alive)
     with torch.cuda.device(dev):
         err = lib.rtt_closest_hit(

@@ -59,7 +59,7 @@ def _library() -> ctypes.CDLL:
     from ..utils import build
     lib = build.load("scatter_rows")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rtt_scatter_rows.argtypes = [p, p, i, i, ll, ll, i, p, p]
+    lib.rtt_scatter_rows.argtypes = [p, p, i, i, ll, ll, i, p, p, p]
     lib.rtt_scatter_rows.restype = i
     lib.rtt_scatter_error_string.argtypes = [i]
     lib.rtt_scatter_error_string.restype = ctypes.c_char_p
@@ -84,7 +84,9 @@ def _check_inputs(ids, g, n_rows: int, R: int, W: int):
 
 def _launch(ids, g, n_rows: int, R: int, W: int, col_stride: int,
             ray_stride: int):
-    """Launch the kernel on the current stream → (n_rows, W) f32."""
+    """Launch the kernel on the current stream → (n_rows, W) f32. It sums
+    into a float64 table of the same shape (scratch, allocated here) and
+    rounds that into the output."""
     if g.device.type != "cuda":
         raise ValueError(f"no scatter-add kernel for device {g.device}")
     if not (g.is_contiguous() and ids.is_contiguous()):
@@ -94,10 +96,12 @@ def _launch(ids, g, n_rows: int, R: int, W: int, col_stride: int,
     if R == 0:
         return out.zero_()
     lib = _library()
+    wide = torch.empty((n_rows, W), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         err = lib.rtt_scatter_rows(
             ids.data_ptr(), g.data_ptr(), R, W, col_stride, ray_stride,
-            n_rows, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            n_rows, wide.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("scatter-add kernel launch failed: "
                            + lib.rtt_scatter_error_string(err).decode())

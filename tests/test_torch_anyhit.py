@@ -21,12 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+import ray_tracer_tpu as jrt
+import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.ops import intersect as jint
 from ray_tracer_tpu.ops import pallas_intersect as jpk
 from ray_tracer_tpu_torch.ops import anyhit as tah
 from ray_tracer_tpu_torch.ops import intersect as tint
 
-from test_torch_common import probe_rays, scene_pair, t_
+from test_torch_common import (probe_rays, scene_pair, secondary_rays, t_,
+                               terrain, tied, to_port)
 
 SCENES = ["room", "metal", "random_balls", "terrain"]
 MAX_MISMATCHES = 2
@@ -69,6 +72,27 @@ def test_occluded_oracle_matches_jnp(name):
                                     backend="jnp", alive=jnp.asarray(alive)))
     got = tint.occluded(ts, t_(o), t_(d), backend="torch", alive=t_(alive))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.1], ids=["full", "short"])
+def test_plain_anyhit_matches_pallas_on_secondary_segments(scale):
+    """Shadow segments as a bounce leaves them (origins inside the scene,
+    random directions) on the terrain at n=24: 1,058 triangles and 3
+    spheres, fewer real spheres than the 128 padded rows."""
+    js = terrain(jrt, n=24)[0]
+    ts = to_port(js)
+    assert ts.num_tris == 1058 and ts.num_spheres == 3
+    assert ts.padded_spheres == 128
+    o, d = secondary_rays(ts, 512, seed=27)
+    d = (d * scale).astype(np.float32)
+    alive = np.random.default_rng(28).random(512) < 0.7
+    want = np.asarray(jpk.anyhit_pallas(js, jnp.asarray(o), jnp.asarray(d),
+                                        alive=jnp.asarray(alive)))
+    got = tah.anyhit_reference(ts, t_(o), t_(d), alive=t_(alive)).numpy()
+    assert not got[~alive].any() and not want[~alive].any()
+    assert int((got != want).sum()) <= MAX_MISMATCHES
+    if scale == 1.0:
+        assert 0.05 < got[alive].mean() < 0.95   # both answers occur
 
 
 def test_plain_anyhit_chunking_is_invisible(monkeypatch):
@@ -128,3 +152,48 @@ def test_kernel_matches_plain_version_on_cuda(cuda_device):
             assert not bool(got[~alive].any()), name
     with pytest.raises(ValueError):
         tah.anyhit(ts, o.double(), d.double())
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_hierarchy_scenes(cuda_device):
+    """The streaming kernel's card-test scenes (the random mesh, its copies
+    tied across 1024-triangle blocks and across supers, the terrain at
+    n=60) on random and secondary rays (origins inside the scene: the
+    lanes of a warp diverge and block at different clusters), segments as
+    they are and scaled by 0.1: every lane equal to the plain version."""
+    from test_torch_blocked import _mesh, _random_rays
+    _, ts = _mesh()
+    scenes = {"mesh": ts, "tied": tied(ts, 1024),
+              "tied-supers": tied(ts, 512), "terrain": terrain(trt, n=60)[0]}
+    alive = t_(np.random.default_rng(18).random(4096) < 0.7).to(cuda_device)
+    for name, s in scenes.items():
+        s = s.to(cuda_device)
+        blocked = 0
+        for rays in (_random_rays(4096, seed=17),
+                     secondary_rays(s, 4096, seed=19)):
+            o, d = (t_(x).to(cuda_device) for x in rays)
+            for scale in (1.0, 0.1):
+                got = tah.anyhit(s, o, d * scale, alive=alive)
+                want = tah.anyhit_reference(s, o, d * scale, alive=alive)
+                assert torch.equal(got, want), (name, scale)
+                assert not bool(got[~alive].any()), name
+                blocked += int(got.sum())
+        assert blocked > 100, name
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_scene_whose_boxes_exceed_shared_memory(cuda_device):
+    """The kernel keeps every cluster and super box in shared memory, as
+    the closest-hit kernel does: a scene of 5,228 clusters (the terrain at
+    n=410, 334,562 triangles) does not fit and the wrapper raises instead
+    of launching; the shadow query sends such a scene, past the streaming
+    crossover, to the streaming kernel."""
+    from ray_tracer_tpu_torch.ops import blocked_hit as tbh
+    ts = terrain(trt, n=410)[0].to(cuda_device)
+    o, d = (t_(x).to(cuda_device) for x in secondary_rays(ts, 256, 3))
+    before = tah.anyhit.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tah.anyhit(ts, o, d)
+    assert tah.anyhit.launches == before
+    assert tbh.uses_blocked(ts)
+    assert tint.occluded_kernels(ts, o, d, 1e-4, None).shape == (256,)

@@ -151,6 +151,26 @@ def test_plain_blocked_equals_plain_closest_hit(block):
     assert int(ties.sum()) > 10
 
 
+def test_plain_blocked_past_64_blocks_equals_plain_closest_hit():
+    """A heightfield of 65 blocks of 1024 (n=183: 66,248 triangles), more
+    than the kernel stages in one round of block boxes: the plain version
+    equals the closest-hit plain version bit for bit on random and
+    secondary rays."""
+    ts = terrain(trt, n=183)[0]
+    assert ts.num_tris == 66_248
+    assert tbh.block_layout(ts, SMALL_BLOCK)[2] == 65
+    o, d = (t_(np.concatenate([a, b])) for a, b in zip(
+        _random_rays(256, seed=25, spread=4.0),
+        secondary_rays(ts, 256, seed=26)))
+    alive = t_(np.random.default_rng(24).random(512) < 0.8)
+    got = tbh.nearest_hit_blocked_reference(ts, o, d, 1e-4, alive,
+                                            block=SMALL_BLOCK)
+    want = tch.nearest_hit_attrs_reference(ts, o, d, 1e-4, alive)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(torch.isfinite(got[0]).sum()) > 50
+
+
 def test_plain_blocked_alive_mask_ragged_and_all_dead():
     """Dead lanes miss (inf, 0, zero row); 200 rays (no multiple of the
     block or of a warp); an all-dead call and an empty one."""
@@ -303,7 +323,9 @@ def test_kernel_matches_plain_version_on_cuda(cuda_device):
     random rays and on secondary rays (origins inside the scene, random
     directions, where the lanes of a warp diverge): at most 2 id
     mismatches, t and rows bit-equal where the ids agree, dead and miss
-    lanes (inf, 0, zero row); a scene of too many blocks raises."""
+    lanes (inf, 0, zero row); the same against the plain version on a
+    scene of more than 64 blocks, whose boxes the kernel stages in
+    rounds."""
     _, ts = _mesh()
     scenes = {"mesh": ts.to(cuda_device),
               "tied": _tied(ts).to(cuda_device),
@@ -337,8 +359,21 @@ def test_kernel_matches_plain_version_on_cuda(cuda_device):
                 assert not bool(got[1][miss].any())
                 if want_attrs:
                     assert not bool(got[2][:, miss].any())
-    with pytest.raises(ValueError, match="at most"):
-        tbh.nearest_hit_blocked(scenes["terrain"], o, d, block=64)
+    # past 64 blocks (one cluster a block: 109 blocks), the block boxes
+    # staged in two rounds
+    s = scenes["terrain"]
+    assert tbh.block_layout(s, 64)[2] > 64
+    for rays in (_random_rays(4096, seed=17), secondary_rays(s, 4096, 19)):
+        o, d = (t_(x).to(cuda_device) for x in rays)
+        for want_attrs in (True, False):
+            got = tbh.nearest_hit_blocked(s, o, d, 1e-4, alive, want_attrs, 64)
+            want = tbh.nearest_hit_blocked_reference(s, o, d, 1e-4, alive,
+                                                     want_attrs, 64)
+            same = got[1] == want[1]
+            assert int((~same).sum()) <= MAX_MISMATCHES
+            assert torch.equal(got[0][same], want[0][same])
+            if want_attrs:
+                assert torch.equal(got[2][:, same], want[2][:, same])
     # the tied scenes do tie: some winner has a copy a super or a block on
     for name, n in (("tied", 1024), ("tied-supers", 512)):
         o, d = (t_(x).to(cuda_device) for x in _random_rays(4096, seed=17))

@@ -84,6 +84,46 @@ def test_plain_scatter_soa_matches_pallas_wavefronts(live_steps, name):
         assert not got.any()
 
 
+def _equal_id_runs(kind, R, n_rows, seed):
+    """(R,) int32 ids in runs of equal ids, where a warp's lanes must be
+    summed before the atomic: "one-id" every lane one row; "alternating"
+    two rows in turn; "interleaved" runs of 8 equal live ids with the
+    dropped ids n_rows and -1 between them; "random" ids in [0, n_rows]."""
+    rng = np.random.default_rng(seed)
+    lane = np.arange(R)
+    if kind == "one-id":
+        ids = np.full(R, 7)
+    elif kind == "alternating":
+        ids = np.where(lane % 2 == 0, 3, n_rows - 1)
+    elif kind == "interleaved":
+        live = np.repeat(rng.integers(0, n_rows, R // 8 + 1), 8)[:R]
+        dropped = np.where(lane % 2 == 0, n_rows, -1)
+        ids = np.where(lane % 3 == 2, dropped, live)
+    else:
+        ids = rng.integers(0, n_rows + 1, size=R)
+    return ids.astype(np.int32)
+
+
+EQUAL_ID_RUNS = ["one-id", "alternating", "interleaved", "random"]
+
+
+@pytest.mark.parametrize("W", [26, 40])
+@pytest.mark.parametrize("kind", EQUAL_ID_RUNS)
+def test_plain_scatter_soa_matches_pallas_on_equal_id_runs(kind, W):
+    """Runs of equal ids, live and dropped, at the untextured width 26 and
+    the textured width 40."""
+    R, N = 1000, 300
+    ids = _equal_id_runs(kind, R, N, seed=W)
+    g = np.random.default_rng(W + 1).normal(size=(W, R)).astype(np.float32)
+    got = tsc.scatter_rows_soa_reference(t_(ids), t_(g), N).numpy()
+    want = np.asarray(jpk.scatter_rows_soa_pallas(jnp.asarray(ids),
+                                                  jnp.asarray(g), N))
+    np.testing.assert_allclose(got, want, err_msg=kind, **SCATTER_TOL)
+    np.testing.assert_allclose(got, _numpy_scatter(ids, g, N), err_msg=kind,
+                               **SCATTER_TOL)
+    assert got.shape == (N, W) and got.any()
+
+
 def test_plain_scatter_of_no_rays_is_zero():
     for fn, g in ((tsc.scatter_rows_soa, torch.zeros((26, 0))),
                   (tsc.scatter_rows, torch.zeros((0, 26)))):
@@ -262,6 +302,29 @@ def test_scatter_kernel_matches_plain_version_on_cuda(cuda_device):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         got_rows = tsc.scatter_rows(ids_c, g_c.T.contiguous(), P)
         torch.testing.assert_close(got_rows, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_sums_equal_id_runs_on_cuda(cuda_device):
+    """Both strides of the kernel against the plain version where a warp's
+    lanes share ids (all one id, alternating ids, live runs between
+    dropped ids, random ids), at widths 26 and 40: every entry within
+    1e-5 of the plain value plus 1e-6 of the sum of |g| it adds up (two
+    f32 sums of the same n values in different orders differ by up to
+    ~n u sum|g|)."""
+    R, P = 70_000, 3_000
+    for W in (26, 40):
+        for kind in EQUAL_ID_RUNS:
+            ids = t_(_equal_id_runs(kind, R, P, seed=W)).to(cuda_device)
+            g = t_(np.random.default_rng(W).normal(size=(W, R)).astype(
+                np.float32)).to(cuda_device)
+            want = tsc.scatter_rows_soa_reference(ids, g, P)
+            bound = 1e-5 * want.abs() + 1e-6 * tsc.scatter_rows_soa_reference(
+                ids, g.abs(), P)
+            for got in (tsc.scatter_rows_soa(ids, g, P),
+                        tsc.scatter_rows(ids, g.T.contiguous(), P)):
+                assert got.shape == (P, W)
+                assert bool(((got - want).abs() <= bound).all()), (kind, W)
 
 
 @pytest.mark.cuda
