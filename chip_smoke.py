@@ -4,16 +4,21 @@
 Drives the port's paths (``ray_tracer_tpu_torch``) through the entry
 points a user calls, and checks them: the forward render path (phase 3),
 the training path (phase 5), the forward render with next-event estimation
-(phase 7) and all three on a large scene through the streaming kernel
-(phase 8). It imports nothing of JAX. Each path is driven with the
-kernels' launch counts set to 0 just before it and read just after.
+(phase 7), all three on a large scene through the streaming kernel
+(phase 8) and on textured scenes through both closest-hit kernels'
+textured variants (phase 9). It imports nothing of JAX. Each path is
+driven with the kernels' launch counts set to 0 just before it and read
+just after.
 Phases, each printing one line (phase 1 one per kernel):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. builds the four kernels from the repository's sources, one nvcc
-     each, started together, and prints ptxas's registers, stack frames
-     and spills; the traversal kernels (closest hit, streaming closest hit,
-     any hit) must show 0-byte stack frames and no spills;
+  1. builds the four kernel libraries from the repository's sources, one
+     nvcc each, started together, and prints ptxas's registers (by
+     template arguments <want_attrs, textured>), stack frames and spills;
+     the traversal kernels (closest hit, streaming closest hit, any hit)
+     must show 0-byte stack frames and no spills, and their untextured
+     instantiations the registers they had before the textured variants
+     (REGISTERS, within 3);
   2. kernel vs its plain PyTorch version on the card, 65,536 rays on each
      of room, metal, random_balls and terrain (camera + random rays, about
      half of them dead), both want_attrs variants: at most 2 id mismatches
@@ -50,7 +55,12 @@ Phases, each printing one line (phase 1 one per kernel):
      version's own error printed beside); kernel (both forms), plain and
      ``index_add_`` ms (on a contiguous (R, 26) source, and on the
      transposed view) on the dense and the real cotangents, and whether
-     two kernel runs were bit-equal;
+     two kernel runs were bit-equal; the same gate on the real bounce-0
+     cotangents of a texture-recovery step on terrain_tex (40 columns);
+     and the row-major form on what that step's texture-fetch backward
+     hands it (bounce 0's albedo fetch: 2,073,600 lanes x 12 columns into
+     the 524,288-row quad table), timed beside its plain version,
+     ``index_add_`` and autograd's own transpose of the gather;
   2c. (run before 3) the any-hit kernel vs its plain version on the card:
      65,536 shadow segments on each of room, metal, random_balls, terrain
      and terrain_nee (terrain plus a 2-triangle light quad and a small
@@ -86,6 +96,19 @@ Phases, each printing one line (phase 1 one per kernel):
      primary and 16,384 secondary rays (0 mismatches), its 1080p primary
      wavefront timed, and the any-hit kernel's refusal of that scene (its
      boxes exceed shared memory);
+  2e. (run before 3) the textured variants of the closest-hit and
+     streaming kernels against their plain versions on 65,536 probe and
+     65,536 secondary rays of terrain_tex (the terrain with UVs repeating
+     8 times, a 512x512 sRGB albedo map and a normal map) and of
+     terrain190k_tex, and of copies tied across supers and blocks (the
+     streaming kernel at blocks of 8192 and 1024): 0 mismatches in t, ids
+     and all 40 row columns; then on the 1080p primary wavefronts beside
+     the untextured variants on the untextured terrains (the same
+     triangles in the same order): the same t and ids, the first 26
+     columns equal, all 40 the winners' table rows; ms warm, cleared and
+     packing (textured, textured, untextured, untextured), the bound with
+     the 40-column row and 48-column planes, registers, shared memory and
+     blocks per SM;
   4. path parity: one 256x144 frame through the kernel and through the
      plain oracle (backend "torch") on the same CUDA tensors; the fraction
      of pixels off by more than 2e-2 must be below 2e-3;
@@ -126,12 +149,25 @@ Phases, each printing one line (phase 1 one per kernel):
      scatter-add launches 4 each per step, gradients finite, the last loss
      below the first, peak memory), image parity at 256x144 against the
      plain oracle (backend "torch"; fraction off below 2e-3) and gradient
-     parity at 128x72 (per leaf max |diff| <= 1e-4 x max |g|).
+     parity at 128x72 (per leaf max |diff| <= 1e-4 x max |g|);
+  9. the textured paths: ``render_progressive`` of terrain_tex at phase
+     3's settings (32 launches of the closest-hit kernel's textured
+     variant, no other kernel) and of terrain190k_tex (32 of the streaming
+     kernel's), each rate beside phase 3's; the NEE render of terrain_tex
+     with terrain_nee's emitters (32 textured closest-hit, 24 any-hit);
+     256x144 image parity; one warm-up and 3 timed texture-recovery steps
+     (Adam 1e-2 over the albedos and the texture stack, from both scaled
+     by 0.8: 4 textured closest-hit, 4 scatter-add and 7 row-major
+     scatter-add launches a step, one packing, the loss falls, the
+     texture gradient nonzero); gradient parity at 128x72 over every
+     float leaf, the texture stack and the UVs included, all finite.
 
-Then it prints the seconds each phase took, the kernels' JSON line (with
-each kernel's bound: the larger of its bytes over 3.35 TB/s and its
-operations, counted on this run's inputs, over 67 TFLOP/s f32; and the
-rays its plain version was timed on) and, last, one JSON line
+Then it prints the seconds each phase took, the kernels' JSON line (the
+four kernels, the scatter-add's row-major form on the texture fetch's
+backward, and the two textured variants, with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its operations, counted on this
+run's inputs, over 67 TFLOP/s f32; and the rays its plain version was
+timed on) and, last, one JSON line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. ``--profile`` adds measurements: where one main-path
 frame's time goes (torch.profiler), for terrain, for the room scene at
@@ -139,8 +175,9 @@ the same settings and for one NEE frame of terrain_nee, and where one
 training step's time goes. ``--out DIR`` writes 4x-downsampled
 images (``chip_smoke_terrain.npy``, ``chip_smoke_terrain_nee.npy``) and, with
 ``--profile``, the profiler tables (``chip_smoke_profile_<name>.txt``)
-into DIR; without it nothing is written. With ``--profile`` phase 8 also
-profiles one forward and one NEE frame of the large scene.
+into DIR; without it nothing is written. With ``--profile`` phases 8
+and 9 also profile one forward and one NEE frame of the large scene and
+of the textured scenes.
 
 Usage: python3 chip_smoke.py [--profile] [--out DIR]
 """
@@ -216,21 +253,55 @@ KERNELS = {
                 "ray_tracer_tpu/ops/pallas_intersect.py:1965"),
     "blocked_hit": ("ray_tracer_tpu_torch/csrc/blocked_hit.cu",
                     "ray_tracer_tpu/ops/pallas_intersect.py:1084"),
+    # the scatter-add's row-major form (B5): the texture fetch's backward
+    "scatter_rows_rows": ("ray_tracer_tpu_torch/csrc/scatter_rows.cu",
+                          "ray_tracer_tpu/ops/pallas_intersect.py:1672"),
+    # the textured variants: _make_kernel / _make_blocked_kernel with
+    # textured=True (switched on at pallas_intersect.py:947 and :1528)
+    "closest_hit_tex": ("ray_tracer_tpu_torch/csrc/closest_hit.cu",
+                        "ray_tracer_tpu/ops/pallas_intersect.py:531"),
+    "blocked_hit_tex": ("ray_tracer_tpu_torch/csrc/blocked_hit.cu",
+                        "ray_tracer_tpu/ops/pallas_intersect.py:1084"),
 }
-# kernel name -> its wrapper, whose .launches counts the kernel's launches;
-# "blocked_hit_ids" counts the streaming kernel's launches without rows
-WRAPPERS = {"closest_hit": ch.nearest_hit_attrs,
-            "scatter_rows": sc.scatter_rows_soa,
-            "any_hit": ah.anyhit,
-            "blocked_hit": bh.nearest_hit_blocked}
+TEXTURED = ("closest_hit_tex", "blocked_hit_tex")
+# launch count name -> (wrapper, its attribute that counts the launches):
+# each kernel's own, "blocked_hit_ids" for the streaming kernel's launches
+# without rows (a part of "blocked_hit") and "scatter_rows_rows" for the
+# scatter-add's row-major form (B5), the backward of the texture fetch
+COUNTS = {"closest_hit": (ch.nearest_hit_attrs, "launches"),
+          "closest_hit_tex": (ch.nearest_hit_attrs, "tex_launches"),
+          "scatter_rows": (sc.scatter_rows_soa, "launches"),
+          "scatter_rows_rows": (sc.scatter_rows, "launches"),
+          "any_hit": (ah.anyhit, "launches"),
+          "blocked_hit": (bh.nearest_hit_blocked, "launches"),
+          "blocked_hit_tex": (bh.nearest_hit_blocked, "tex_launches"),
+          "blocked_hit_ids": (bh.nearest_hit_blocked, "ids_launches")}
 LARGE_N = 310          # terrain190k: 2 (310 - 1)^2 = 190,962 triangles
 LARGE_TRAIN_STEPS = 3  # phase 8's timed training steps
 HUGE_N = 520           # 538,722 triangles: 66 blocks of 8192, two rounds
-LIBRARIES = [os.path.splitext(os.path.basename(src))[0]
-             for src, _ in KERNELS.values()]
+LIBRARIES = list(dict.fromkeys(os.path.splitext(os.path.basename(src))[0]
+                               for src, _ in KERNELS.values()))
 # the libraries of the traversal kernels (B1, B4, B3): 0-byte stack frames
 # and no spills, gated in phase 1
 TRAVERSAL = ("closest_hit", "blocked_hit", "anyhit")
+# registers of the untextured instantiations (mangled template arguments:
+# <want_attrs, textured>) on an H100 before the textured variants were
+# added, each held within REGISTER_SLACK in phase 1
+REGISTERS = {("closest_hit", "ILb0ELb0E"): 69,
+             ("closest_hit", "ILb1ELb0E"): 71,
+             ("blocked_hit", "ILb0ELb0E"): 88,
+             ("blocked_hit", "ILb1ELb0E"): 86,
+             ("anyhit", "anyhit_kernel"): 72}
+REGISTER_SLACK = 3
+TEX_RES = 512          # texture_resolution of the textured terrains
+TEX_REPEATS = 8        # their UVs span [-8, 8]: the repeat wrap
+TEX_START = 0.8        # the texture-recovery start scales the stack by this
+TEX_TRAIN_STEPS = 3    # phase 9's timed training steps
+# texture recovery's trainable leaves. On an H100 (1080p, 5 steps from the
+# start above) adding DEFAULT_TRAINABLE's geometry at 1e-4 raised the loss
+# from 3.05e-4 to 5.88e-4 on terrain_tex, where it lowers it on the
+# untextured terrain; the albedos and the stack alone lowered it to 2.08e-4
+TEX_FIELDS = ALBEDOS + ("textures",)
 
 
 def heightfield(n, extent, y0, rng):
@@ -257,19 +328,51 @@ def heightfield(n, extent, y0, rng):
     return verts, normals, idx
 
 
-def terrain_scene(device, n=90, aspect=W / H, with_lights=False):
+def texture_images(res, seed=0):
+    """(albedo, normal map), each (res, res, 3) uint8: a seeded two-colour
+    checker of 8x8 cells times a left-to-right ramp, and the tangent-space
+    normals of a periodic heightfield's slopes encoded as (n + 1) / 2."""
+    rng = np.random.default_rng(seed)
+    i, j = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    cell = max(res // 8, 1)
+    colours = 0.3 + 0.6 * rng.random((2, 3))
+    ramp = 0.4 + 0.6 * j / max(res - 1, 1)
+    albedo = colours[(i // cell + j // cell) % 2] * ramp[..., None]
+    # h(u, v) = a cos(2 pi (2 u + p)) + b cos(2 pi (3 v + q)), u = j / res
+    a, b, p, q = 0.05, 0.04, rng.random(), rng.random()
+    dh_du = -a * 4 * np.pi * np.sin(2 * np.pi * (2 * j / res + p))
+    dh_dv = -b * 6 * np.pi * np.sin(2 * np.pi * (3 * i / res + q))
+    nrm = np.stack([-dh_du, -dh_dv, np.ones_like(dh_du)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    to_u8 = (lambda x: np.clip(np.round(x * 255), 0, 255).astype(np.uint8))
+    return to_u8(albedo), to_u8((nrm + 1) / 2)
+
+
+def terrain_scene(device, n=90, aspect=W / H, with_lights=False,
+                  textured=False):
     """Terrain of 2 (n-1)^2 triangles (15,842 at n=90) with the metal
     scene's glass, diffuse and glossy spheres resting on it. With
     ``with_lights`` (terrain_nee): a 2x2 quad high above it with the room
     scene's ceiling-light material (white, strength 10.5), wound so that
     its geometric normal faces down at the terrain, and one small warm
-    emissive sphere."""
+    emissive sphere. With ``textured`` (terrain_tex): the heightfield
+    carries UVs u = x / 4 * 8, v = z / 4 * 8 (repeating 8 times) and
+    ``texture_images``' albedo (sRGB) and normal map at 512 x 512; the
+    spheres and lights stay untextured. The triangles' order, so their
+    ids, is the untextured terrain's."""
     verts, normals, idx = heightfield(n, 4.0, -1.0, np.random.default_rng(0))
     # heightfield's winding faces -y and the intersection culls back faces:
     # reverse it so the terrain faces the camera above it
     idx = idx.reshape(-1, 3)[:, ::-1].reshape(-1)
-    b = rt.SceneBuilder()
-    b.add_mesh(verts, normals, idx, albedo=(0.7, 0.5, 0.3), smoothness=0.3)
+    b = rt.SceneBuilder(texture_resolution=TEX_RES)
+    tex = {}
+    if textured:
+        albedo_map, normal_map = texture_images(TEX_RES)
+        tex = dict(uvs=verts[:, [0, 2]] / 4.0 * TEX_REPEATS,
+                   tex=b.add_texture(albedo_map, srgb=True),
+                   normal_tex=b.add_texture(normal_map, srgb=False))
+    b.add_mesh(verts, normals, idx, albedo=(0.7, 0.5, 0.3), smoothness=0.3,
+               **tex)
     for x, albedo, smooth in ((-1.2, (0.8, 0.8, 0.8), -1.0),
                               (0.0, (0.7, 0.3, 0.3), 0.0),
                               (1.2, (0.8, 0.6, 0.2), 0.15)):
@@ -291,21 +394,20 @@ def terrain_scene(device, n=90, aspect=W / H, with_lights=False):
 
 def reset_counts():
     """Every kernel's launch count to 0."""
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
-    bh.nearest_hit_blocked.ids_launches = 0
+    for wrapper, attr in COUNTS.values():
+        setattr(wrapper, attr, 0)
 
 
 def read_counts():
     """Every kernel's launch count since reset_counts()."""
-    counts = {k: w.launches for k, w in WRAPPERS.items()}
-    counts["blocked_hit_ids"] = bh.nearest_hit_blocked.ids_launches
-    return counts
+    return {k: getattr(w, attr) for k, (w, attr) in COUNTS.items()}
 
 
 def launches(**want):
     """The launch counts a path must show: those named, the others 0."""
-    return {k: want.get(k, 0) for k in (*WRAPPERS, "blocked_hit_ids")}
+    if set(want) - set(COUNTS):
+        raise KeyError(f"no launch count {set(want) - set(COUNTS)}")
+    return {k: want.get(k, 0) for k in COUNTS}
 
 
 def cuda_ms(fn, reps):
@@ -354,16 +456,17 @@ def bound(nbytes, ops):
 
 def plane_bytes(scene, block=None, attrs=True):
     """Bytes of the planes a ray-query kernel reads, each input once:
-    spheres, 128 bytes a triangle (the geometry plane repeats columns 0:12
-    of the attribute plane, so a triangle is 48 bytes of geometry and the
-    80 of its other attributes; 48 without ``attrs``: the any-hit kernel
-    reads the geometry plane only), cluster and super boxes and, with
-    ``block``, the streaming kernel's block boxes."""
+    spheres, 128 bytes a triangle, 192 on a textured scene (the geometry
+    plane repeats columns 0:12 of the attribute plane, so a triangle is 48
+    bytes of geometry and the 80, or 144, of its other attributes; 48
+    without ``attrs``: the any-hit kernel and the ids-only variants read
+    the geometry plane only), cluster and super boxes and, with ``block``,
+    the streaming kernel's block boxes."""
     clusters = -(-scene.num_tris // ch.CLUSTER)
     boxes = clusters + -(-clusters // ch.SUPER) + (
         bh.block_layout(scene, block)[2] if block else 0)
-    return 4 * (scene.padded_spheres * 16
-                + scene.padded_tris * (32 if attrs else ch.GEO_COLS)
+    tri = ch.tri_cols(scene.num_textures > 0) if attrs else ch.GEO_COLS
+    return 4 * (scene.padded_spheres * 16 + scene.padded_tris * tri
                 + boxes * 8)
 
 
@@ -656,6 +759,35 @@ def stack_and_spills(log):
     return frames
 
 
+def registers(log):
+    """{function: registers} of every entry function ptxas reports in a
+    build log (``-Xptxas -v``)."""
+    regs, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+            fn = None
+    return regs
+
+
+def check_registers(name, regs):
+    """Hold the untextured instantiations of library ``name`` to their
+    REGISTERS within REGISTER_SLACK; raise where one moved or is
+    missing."""
+    for (lib, key), want in REGISTERS.items():
+        if lib != name:
+            continue
+        got = [r for fn, r in regs.items() if key in fn]
+        if len(got) != 1 or abs(got[0] - want) > REGISTER_SLACK:
+            raise AssertionError(f"{name} {key}: registers {got}, want "
+                                 f"{want} +- {REGISTER_SLACK}")
+
+
 def phase1_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source
@@ -663,19 +795,27 @@ def phase1_build():
     for name in LIBRARIES:
         build.load(name)
     secs = time.perf_counter() - t0
+    regs = {}
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text() if path.with_suffix(
             ".log").exists() else ""
         ptxas = " / ".join(ln.split("ptxas info    : ")[-1] for ln in
                            log.splitlines() if "Used" in ln or "spill" in ln)
+        # registers by template arguments (<want_attrs, textured>)
+        named = {(re.search(r"I(?:Lb[01]E)+E", fn) or re.search(
+            r"[a-z_]+_kernel", fn)).group(0): r for fn, r in registers(
+                log).items()}
         print(f"phase 1 build: {path.name} ({len(paths)} built together in "
-              f"{secs:.2f} s) | {ptxas}", flush=True)
+              f"{secs:.2f} s) | registers {named} | {ptxas}", flush=True)
         frames = stack_and_spills(log)
         if name in TRAVERSAL and (not frames or any(
                 any(f[1:]) for f in frames)):
             raise AssertionError(f"{name}: the traversal kernels must have "
                                  f"0-byte stack frames and no spills, ptxas "
                                  f"reports {frames}")
+        regs[name] = registers(log)
+        check_registers(name, regs[name])
+    return regs
 
 
 def probe_inputs(scene, cam, n, seed, device):
@@ -780,7 +920,7 @@ def phase2_kernel_vs_plain(device, terrain):
           f"(packing alone {pack_ms:.3f} ms), plain {plain_ms:.3f} ms, max "
           f"|dt| {err}; {lib.rtt_closest_hit_shared_bytes(*shape)} B of "
           f"shared memory a block, "
-          f"{lib.rtt_closest_hit_blocks_per_sm(*shape, 1)} blocks an SM; "
+          f"{lib.rtt_closest_hit_blocks_per_sm(*shape, 1, 0)} blocks an SM; "
           f"tested {work['spheres']} sphere pairs, {work['supers']} super "
           f"boxes, {work['clusters']} cluster boxes, {work['pairs']} "
           f"triangle pairs: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
@@ -875,7 +1015,7 @@ def phase3_main_path(device, terrain, card, profile, out_dir):
         print(f"profile: room {W}x{H} {FRAMES} frames "
               f"{segs / room_s / 1e6:.3f} M segments/s", flush=True)
         profile_frame("room", room, room_basis, params, out_dir)
-    return counts["closest_hit"]
+    return counts["closest_hit"], segs / float(np.median(runs))
 
 
 def profile_frame(name, scene, basis, params, out_dir):
@@ -1003,14 +1143,18 @@ def scatter_times(ids, g_soa, n_rows):
             cuda_ms(lambda: acc.index_add_(0, ids, g_soa.T), 20))
 
 
-def winner_cotangents(scene, cam):
+def winner_cotangents(scene, cam, textured=False):
     """What the winner-row backward hands the scatter-add on bounces 0 and
     1 of one training step at the main path's settings (``train_setup``'s
-    start and target) → [(ids, g (26, R)), ...] in bounce order, n_rows.
-    Each scatter is matched to its bounce by its ids, which are the
-    forward's winners with the misses routed to n_rows."""
-    fwd, bwd = [], []
+    start and target; with ``textured`` its texture-recovery step) →
+    [(ids, g (26 or 40, R)), ...] in bounce order, n_rows, and what the
+    texture fetches' backward hands the row-major scatter-add, [(ids,
+    g (R, 12), n_rows), ...] in the order of the calls. Each winner-row
+    scatter is matched to its bounce by its ids, which are the forward's
+    winners with the misses routed to n_rows."""
+    fwd, bwd, fetches = [], [], []
     real_rows, real_scatter = intersect._nearest_rows, sc.scatter_rows_soa
+    real_fetch = sc.scatter_rows
 
     def rows_spy(*args, **kw):
         out = real_rows(*args, **kw)
@@ -1021,14 +1165,21 @@ def winner_cotangents(scene, cam):
         bwd.append((ids, g_soa, n_rows))
         return real_scatter(ids, g_soa, n_rows)
 
-    scatter_spy.launches = 0  # the wrapper counts on its module's name
+    def fetch_spy(ids, g_rows, n_rows):
+        fetches.append((ids, g_rows, n_rows))
+        return real_fetch(ids, g_rows, n_rows)
 
-    step_fn, args = train_setup(scene, cam)
+    # the wrappers count on their module's names
+    scatter_spy.launches = fetch_spy.launches = 0
+
+    step_fn, args = train_setup(scene, cam, textured)
     intersect._nearest_rows, sc.scatter_rows_soa = rows_spy, scatter_spy
+    sc.scatter_rows = fetch_spy
     try:
         step_fn(*args)
     finally:
         intersect._nearest_rows, sc.scatter_rows_soa = real_rows, real_scatter
+        sc.scatter_rows = real_fetch
     n_rows = bwd[0][2]
     out = []
     for pid, miss in fwd[:2]:
@@ -1037,10 +1188,10 @@ def winner_cotangents(scene, cam):
     if len(out) != 2:
         raise AssertionError("the training step's scatters do not match its "
                              "bounces 0 and 1")
-    return out, n_rows
+    return out, n_rows, fetches
 
 
-def phase2b_scatter_vs_plain(device, terrain):
+def phase2b_scatter_vs_plain(device, terrain, terrain_tex):
     scene, cam = terrain
     o, d = primary_wavefront(scene, cam, device)
     t, pid = ch.nearest_hit_attrs(scene, o, d, 1e-4, want_attrs=False)
@@ -1052,9 +1203,15 @@ def phase2b_scatter_vs_plain(device, terrain):
     sparse = torch.where(torch.rand(R, generator=gen, device=device) < 0.05,
                          ids, n_rows)
     all_miss = torch.full_like(ids, n_rows)
-    real, real_rows = winner_cotangents(scene, cam)
-    if real_rows != n_rows:
-        raise AssertionError(f"the backward's table has {real_rows} rows")
+    real, real_rows, _ = winner_cotangents(scene, cam)
+    tex_real, tex_rows, fetches = winner_cotangents(*terrain_tex,
+                                                    textured=True)
+    if real_rows != n_rows or tex_rows != n_rows:
+        raise AssertionError(f"the backward's tables have {real_rows} and "
+                             f"{tex_rows} rows, not {n_rows}")
+    tex_ids, tex_g = tex_real[0]
+    if tex_g.shape != (40, R):
+        raise AssertionError(f"textured cotangents {tuple(tex_g.shape)}")
     cases = [("dense", sc.scatter_rows_soa, ids, g, None),
              ("sparse", sc.scatter_rows_soa, sparse, g, None),
              ("all-miss", sc.scatter_rows_soa, all_miss, g, None),
@@ -1063,6 +1220,8 @@ def phase2b_scatter_vs_plain(device, terrain):
         cases += [(f"real bounce {b}", sc.scatter_rows_soa, r_ids, r_g, None),
                   (f"real bounce {b} row-major", sc.scatter_rows, r_ids, r_g,
                    r_g.T.contiguous())]
+    cases += [("real textured bounce 0 (40 columns)", sc.scatter_rows_soa,
+               tex_ids, tex_g, None)]
     report, max_err = [], 0.0
     for label, fn, case_ids, case_g, layout in cases:
         err, text = scatter_gate(label, fn, case_ids, case_g, n_rows, layout)
@@ -1085,6 +1244,13 @@ def phase2b_scatter_vs_plain(device, terrain):
             f"{nonzero:.1%} of entries nonzero): kernel {k_ms:.3f} ms, "
             f"index_add_ {l_ms:.3f} ms (on the transposed view {v_ms:.3f} "
             f"ms)")
+    k_ms, l_ms, v_ms = scatter_times(tex_ids, tex_g, n_rows)
+    real_text.append(
+        f"textured bounce 0 (terrain_tex's texture-recovery step, 40 "
+        f"columns, {int((tex_ids < n_rows).sum())} live lanes, "
+        f"{float((tex_g != 0).float().mean()):.1%} of entries nonzero): "
+        f"kernel {k_ms:.3f} ms, index_add_ {l_ms:.3f} ms (on the transposed "
+        f"view {v_ms:.3f} ms)")
     # ids and cotangents in, the table out; one add per live entry
     live = int((ids < n_rows).sum())
     b = bound(R * 4 * (1 + 26) + n_rows * 26 * 4, live * 26)
@@ -1098,8 +1264,37 @@ def phase2b_scatter_vs_plain(device, terrain):
           f"transposed view {view_ms:.3f} ms), bound {b['bound_ms']:.4f} ms "
           f"by {b['bound_by']}; two kernel runs bit-equal: {bit_equal} | "
           f"real: " + "; ".join(real_text), flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, plain_rays=R, max_abs_err=max_err,
-                mismatches=0, library_ms=library_ms, **b)
+
+    # the row-major form on the main path: the texture fetches' backward,
+    # bounce 0's albedo fetch the last that the backward scatters
+    f_ids, f_g, f_rows = fetches[-1]
+    if len(fetches) != 2 * BOUNCES + 1 or f_g.shape != (R, 12):
+        raise AssertionError(f"{len(fetches)} texture-fetch scatters, the "
+                             f"last {tuple(f_g.shape)}")
+    f_err, f_text = scatter_gate("real texture fetch bounce 0",
+                                 sc.scatter_rows, f_ids, f_g.T, f_rows, f_g)
+    f_ms = cuda_ms(lambda: sc.scatter_rows(f_ids, f_g, f_rows), 20)
+    f_plain = cuda_ms(lambda: sc.scatter_rows_reference(f_ids, f_g, f_rows),
+                      5)
+    acc = torch.zeros((f_rows, 12), device=device)
+    f_lib = cuda_ms(lambda: acc.index_add_(0, f_ids, f_g), 20)
+    # autograd's own transpose of the gather: index_put_ with accumulate
+    f_sort = cuda_ms(lambda: torch.zeros_like(acc).index_put_(
+        (f_ids.long(),), f_g, accumulate=True), 1)
+    # ids and cotangents in, the quad table's gradient out; one add a lane
+    # and column
+    fb = bound(R * 4 * (1 + 12) + f_rows * 12 * 4, R * 12)
+    print(f"phase 2b row-major scatter-add (B5) on the texture fetch's "
+          f"backward (terrain_tex's texture-recovery step, {f_rows} quad "
+          f"rows x 12, {len(fetches)} scatters a step): {f_text} | kernel "
+          f"{f_ms:.3f} ms, plain {f_plain:.3f} ms, index_add_ {f_lib:.3f} ms, "
+          f"autograd's own transpose (index_put_ with accumulate) "
+          f"{f_sort:.3f} ms, bound {fb['bound_ms']:.4f} ms by "
+          f"{fb['bound_by']}", flush=True)
+    return (dict(ms=ms, plain_ms=plain_ms, plain_rays=R, max_abs_err=max_err,
+                 mismatches=0, library_ms=library_ms, **b),
+            dict(ms=f_ms, plain_ms=f_plain, plain_rays=R, max_abs_err=f_err,
+                 mismatches=0, library_ms=f_lib, **fb))
 
 
 def shadow_segments(scene, cam, n, seed, device):
@@ -1330,12 +1525,14 @@ def phase2c_anyhit_vs_plain(device, terrain, terrain_nee):
                 max_abs_err=0.0, mismatches=mism, library_ms=None, **b)
 
 
-def train_setup(scene, cam):
+def train_setup(scene, cam, textured=False):
     """The training path's step at the main path's settings: Adam over
     DEFAULT_TRAINABLE (``train_optimizer``), from the scene with its
     albedos scaled by ALBEDO_START towards frame 0 of the true scene →
     (step_fn, its first arguments: trainable, opt, start, basis, target,
-    frame)."""
+    frame). With ``textured``, texture recovery: the albedos and the
+    texture stack (TEX_FIELDS, at the albedos' rate), the stack from the
+    true one scaled by TEX_START."""
     params = rt.RenderParams(**PARAMS)
     basis = rt.camera_basis(cam)
     with torch.no_grad():  # the same frame, so the same sample streams
@@ -1343,24 +1540,36 @@ def train_setup(scene, cam):
     start = dataclasses.replace(
         scene, tri_albedo=scene.tri_albedo * ALBEDO_START,
         sphere_albedo=scene.sphere_albedo * ALBEDO_START)
-    init_fn, step_fn = make_train_step(params, train_optimizer)
-    trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
+    fields = DEFAULT_TRAINABLE
+    if textured:
+        start = dataclasses.replace(start,
+                                    textures=scene.textures * TEX_START)
+        fields = TEX_FIELDS
+    init_fn, step_fn = make_train_step(
+        params, lambda leaves: train_optimizer(leaves, fields))
+    trainable, opt = init_fn(start, fields)
     return step_fn, (trainable, opt, start, basis, target, 0)
 
 
-def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
+def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
+               textured=False):
     """The training path: ``grad.make_train_step`` over DEFAULT_TRAINABLE
-    at the main path's settings, from the scene with its albedos scaled by
-    ALBEDO_START towards frame 0 of the true scene; one warm-up step and
-    ``steps`` timed steps, each driven with every launch count at 0 and
-    held to bounces + 1 launches of the ``hit`` kernel and of the
-    scatter-add and to one packing of the scene's planes (the optimizer
-    moved the scene); gradients finite, tri_v0's and tri_albedo's not all zero,
-    the last loss below the first → (line, the launches summed over all
-    steps)."""
-    step_fn, (trainable, opt, start, basis, target, _) = train_setup(scene,
-                                                                     cam)
-    per_step = launches(**{hit: BOUNCES + 1, "scatter_rows": BOUNCES + 1})
+    (over TEX_FIELDS with ``textured``) at the main path's settings, from
+    ``train_setup``'s start towards frame 0 of the true scene; one warm-up
+    step and ``steps`` timed steps, each driven with every launch count at
+    0 and held to bounces + 1 launches of the ``hit`` kernel and of the
+    scatter-add (with ``textured`` also bounces * 2 + 1 of its row-major
+    form: the backward of the albedo fetch of every segment and of the
+    normal-map fetch of every segment but the last, whose normal scatters
+    no further ray) and to one packing of the scene's planes (the
+    optimizer moved the scene);
+    gradients finite, tri_v0's (textures', with ``textured``) and
+    tri_albedo's not all zero, the last loss below the first → (line, the
+    launches summed over all steps)."""
+    step_fn, (trainable, opt, start, basis, target, _) = train_setup(
+        scene, cam, textured)
+    per_step = launches(**{hit: BOUNCES + 1, "scatter_rows": BOUNCES + 1},
+                        scatter_rows_rows=2 * BOUNCES + 1 if textured else 0)
     totals = dict.fromkeys(per_step, 0)
     losses, device_s, host_s = [], [], []
     torch.cuda.synchronize()
@@ -1396,15 +1605,17 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
         if p.grad is None or not bool(torch.isfinite(p.grad).all()):
             raise AssertionError(f"{label}: gradient of {k} is missing or "
                                  f"not finite")
-    for k in ("tri_v0", "tri_albedo"):
+    for k in ("textures" if textured else "tri_v0", "tri_albedo"):
         if not bool(trainable[k].grad.any()):
             raise AssertionError(f"{label}: gradient of {k} is all zero")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not fall: {losses}")
     med = float(np.median(device_s))
     segs = W * H * 1 * (BOUNCES + 1)
+    rates = (f"{ALBEDO_LR} albedos and textures" if textured
+             else f"{ALBEDO_LR} albedos, {GEOMETRY_LR} geometry")
     line = (f"{label} {scene.num_tris} tris {W}x{H} b{BOUNCES} Adam "
-            f"({ALBEDO_LR} albedos, {GEOMETRY_LR} geometry) over "
+            f"({rates}) over "
             f"{len(trainable)} leaves, whole-frame gradient: {med:.4f} s/step "
             f"median ({len(device_s)} steps "
             f"{[round(x, 4) for x in device_s]} s, spread "
@@ -1412,12 +1623,11 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir):
             f"{segs / med / 1e6:.3f} M segments/s forward+backward; peak "
             f"memory {peak / 2 ** 30:.3f} GiB; host enqueue "
             f"{float(np.median(host_s)):.4f} s vs device {med:.4f} s per "
-            f"step; {totals[hit]} {hit} + {totals['scatter_rows']} "
-            f"scatter_rows launches ({BOUNCES + 1} + {BOUNCES + 1} per step); "
-            f"loss {losses[0]:.6g} -> {losses[-1]:.6g} | {card}")
+            f"step; launches {totals} over the steps ({per_step} per "
+            f"step); loss {losses[0]:.6g} -> {losses[-1]:.6g} | {card}")
     if profile:
-        profile_step(step_fn, trainable, opt, start, basis, target, med, hit,
-                     out_dir)
+        profile_step(label, step_fn, trainable, opt, start, basis, target,
+                     med, hit, out_dir)
     return line, totals
 
 
@@ -1428,25 +1638,30 @@ def phase5_training(device, terrain, card, profile, out_dir):
     return totals["scatter_rows"]
 
 
-def train_optimizer(leaves):
-    """Adam over DEFAULT_TRAINABLE's leaves (in that order): the default
-    rate 1e-2 on the albedos, 1e-4 on the geometry. The target is the true
+def train_optimizer(leaves, fields=DEFAULT_TRAINABLE):
+    """Adam over the leaves of ``fields`` (in that order): the default
+    rate 1e-2 on the albedos and the texture stack, 1e-4 on the geometry.
+    The target is the true
     scene, so its geometry is already right, and the interior gradient does
     not see the silhouettes a move shifts. On an H100 at this phase's
     settings, Adam 1e-2 on every leaf raised the loss from 7.76e-4 to
     2.00e-3 in one step; 1e-3 on the geometry lowered it for four steps
     and then raised it again."""
-    names = dict(zip(DEFAULT_TRAINABLE, leaves))
-    return torch.optim.Adam([
-        {"params": [names[k] for k in ALBEDOS], "lr": ALBEDO_LR},
-        {"params": [v for k, v in names.items() if k not in ALBEDOS],
-         "lr": GEOMETRY_LR}])
+    names = dict(zip(fields, leaves))
+    colour = ALBEDOS + ("textures",)
+    groups = [{"params": [v for k, v in names.items() if k in colour],
+               "lr": ALBEDO_LR},
+              {"params": [v for k, v in names.items() if k not in colour],
+               "lr": GEOMETRY_LR}]
+    return torch.optim.Adam([g for g in groups if g["params"]])
 
 
-def profile_step(step_fn, trainable, opt, scene, basis, target, step_s,
-                 hit, out_dir):
+def profile_step(label, step_fn, trainable, opt, scene, basis, target,
+                 step_s, hit, out_dir):
     """Where one training step's time goes (measurement only): its device
-    kernels under torch.profiler against the step's median device time."""
+    kernels under torch.profiler against the step's median device time.
+    With ``out_dir``, the profiler's table goes to
+    chip_smoke_profile_train_<label>.txt there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -1459,14 +1674,16 @@ def profile_step(step_fn, trainable, opt, scene, basis, target, step_s,
     def us(key):
         return [e.time_range.elapsed_us() for e in kernels if key in e.name]
 
-    hit_us, scatter_us = us(hit), us("scatter_rows")
+    # the textured variant is an instantiation of the same kernel function
+    hit_us, scatter_us = us(hit.removesuffix("_tex")), us("scatter_rows")
     if out_dir:
         table = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40)
-        with open(os.path.join(out_dir, "chip_smoke_profile_train.txt"),
+        with open(os.path.join(out_dir,
+                               f"chip_smoke_profile_train_{label}.txt"),
                   "w") as f:
             f.write(table)
-    print(f"profile: training step {len(kernels)} device kernels busy "
+    print(f"profile: {label} training step {len(kernels)} device kernels busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / 1e6 / step_s:.1%} of the "
           f"median step's {step_s * 1e3:.3f} ms); {hit} {hit_us} us, "
           f"scatter_rows {scatter_us} us "
@@ -1479,7 +1696,7 @@ def grad_parity(scene, cam, params, size=(256, 144)):
     the kernels (backend "cuda") and the plain oracle ("torch") on the same
     CUDA tensors → (image equal, image max |diff|, each leaf's max |g|,
     largest max |diff| / max |g|, its leaf). Raises where a leaf breaks the
-    gate."""
+    gate or a gradient is not finite."""
     basis = rt.camera_basis(cam.replace(aspect=size[0] / size[1]))
     params = params.replace(width=size[0], height=size[1])
     fields = [k for k in TENSOR_FIELDS
@@ -1501,6 +1718,10 @@ def grad_parity(scene, cam, params, size=(256, 144)):
     (img_k, g_k), (img_p, g_p) = out["cuda"], out["torch"]
     worst, worst_leaf, scales = 0.0, None, {}
     for k in fields:
+        if not (bool(torch.isfinite(g_k[k]).all())
+                and bool(torch.isfinite(g_p[k]).all())):
+            raise AssertionError(f"gradient parity: {k}'s gradient is not "
+                                 f"finite")
         scale = scales[k] = float(g_p[k].abs().max())
         err = float((g_k[k] - g_p[k]).abs().max())
         if err > GRAD_PARITY * scale:
@@ -1556,10 +1777,7 @@ def nee_render(phase, name, scene, cam, params, want, card, profile,
     print(f"phase {phase} NEE path: {name} {scene.num_tris} tris {W}x{H} "
           f"b{BOUNCES} {FRAMES} frames nee+mis skybox={params.skybox}: "
           f"{rate_text(runs, segs)}; host enqueue {enqueue_s:.4f} s of the "
-          f"first); {counts['closest_hit']} closest-hit, "
-          f"{counts['blocked_hit']} streaming ({counts['blocked_hit_ids']} "
-          f"without rows), {counts['any_hit']} any-hit, "
-          f"{counts['scatter_rows']} scatter-add launches; image mean "
+          f"first); launches {counts}; image mean "
           f"{float(img.mean()):.5f} vs {float(plain.mean()):.5f} with "
           f"nee=False (same frames, ungated) | {card}", flush=True)
     if out_dir:
@@ -1604,10 +1822,7 @@ def past_64_blocks(device, huge):
         got = bh.nearest_hit_blocked(scene, po, pd, 1e-4, live)
         ref = bh.nearest_hit_blocked_reference(scene, po, pd, 1e-4, live)
         torch.cuda.synchronize()
-        mism, err, hits = compare(got, ref, live, f"66 blocks {kind}")
-        if mism:
-            raise AssertionError(f"66 blocks {kind}: {mism} mismatches")
-        report.append(f"{kind} 0 mism {hits} hits")
+        report.append(exact(f"66 blocks {kind}", got, ref, live))
     ms = cuda_ms(lambda: bh.nearest_hit_blocked(scene, o, d, 1e-4, alive), 10)
     before, refused = ah.anyhit.launches, ""
     try:
@@ -1693,7 +1908,7 @@ def phase2d_blocked_vs_plain(device, terrain, large, large_nee, huge):
               + " / ".join(f"{x:.3f}" for x in v["b1"]) + " ms"
               for k, v in side.items())
           + f" | streaming kernel: {lib.rtt_blocked_hit_shared_bytes()} B of "
-          f"shared memory a block, {lib.rtt_blocked_hit_blocks_per_sm(1)} "
+          f"shared memory a block, {lib.rtt_blocked_hit_blocks_per_sm(1, 0)} "
           f"blocks an SM | terrain190k streaming: tested {work['spheres']} "
           f"sphere pairs, {work['blocks']} block boxes, {work['supers']} "
           f"super boxes, {work['clusters']} cluster boxes, {work['pairs']} "
@@ -1779,6 +1994,183 @@ def phase8_large_scene(device, large, large_nee, build_s, card, profile,
     return counts["blocked_hit"]
 
 
+def exact(label, got, ref, alive):
+    """``compare`` with no id mismatch allowed: t, ids and every row
+    column equal on every lane → report text."""
+    mism, _, hits = compare(got, ref, alive, label)
+    if mism:
+        raise AssertionError(f"{label}: {mism} mismatches")
+    return f"{label} 0 mism {hits} hits"
+
+
+def phase2e_textured_vs_plain(device, terrain, terrain_tex, large, large_tex,
+                              regs, b1, b4):
+    """The textured variants (40-column rows from 48-column triangle
+    planes) against their plain versions on PROBE_RAYS probe and secondary
+    rays of the textured terrains and their tied copies: 0 mismatches in
+    t, ids and all 40 row columns; then on the 1080p primary wavefronts
+    beside the untextured variants on the untextured terrains (the same
+    geometry in the same order): t, ids and the first 26 columns equal to
+    the untextured kernel's, all 40 equal to the winners' table rows, both
+    timed. The bounds count the operations phases 2 and 2d counted on the
+    same rays (the traversal is the same) and the bytes of the textured
+    rows and planes."""
+    report = []
+    scene, cam = terrain_tex
+    o, d, alive = probe_inputs(scene, cam, PROBE_RAYS, 10, device)
+    so, sd = secondary_rays(scene, PROBE_RAYS, 11, device)
+    for name, s in (("terrain_tex", scene), ("tied", tied(scene, 512))):
+        for kind, (ro, rd) in (("primary", (o, d)), ("secondary", (so, sd))):
+            got = ch.nearest_hit_attrs(s, ro, rd, 1e-4, alive)
+            ref = ch.nearest_hit_attrs_reference(s, ro, rd, 1e-4, alive)
+            torch.cuda.synchronize()
+            report.append(exact(f"B1-tex {name} {kind}", got, ref, alive))
+    b1_plain_ms = cuda_ms(lambda: ch.nearest_hit_attrs_reference(
+        scene, o, d, 1e-4, alive), 2)
+    big, big_cam = large_tex
+    o4, d4, alive4 = probe_inputs(big, big_cam, PROBE_RAYS, 12, device)
+    so4, sd4 = secondary_rays(big, PROBE_RAYS, 13, device)
+    for name, s in (("terrain190k_tex", big), ("tied", tied(big, 1024))):
+        for kind, (ro, rd) in (("primary", (o4, d4)),
+                               ("secondary", (so4, sd4))):
+            # the plain version's result does not depend on the block size
+            ref = bh.nearest_hit_blocked_reference(s, ro, rd, 1e-4, alive4)
+            for block in (bh.BLOCK, 1024):
+                got = bh.nearest_hit_blocked(s, ro, rd, 1e-4, alive4,
+                                             block=block)
+                torch.cuda.synchronize()
+                report.append(exact(f"B4-tex {name} {kind} /{block}", got,
+                                    ref, alive4))
+    b4_plain_ms = cuda_ms(lambda: bh.nearest_hit_blocked_reference(
+        big, o4, d4, 1e-4, alive4), 1)
+    print(f"phase 2e textured kernels vs plain ({PROBE_RAYS} rays, t, ids "
+          f"and all 40 row columns): " + "; ".join(report)
+          + f" | plain on {PROBE_RAYS} probe rays: B1-tex's {b1_plain_ms:.3f}"
+          f" ms (terrain_tex), B4-tex's {b4_plain_ms:.3f} ms "
+          f"(terrain190k_tex)", flush=True)
+
+    # the 1080p primary wavefronts, beside the untextured variants
+    alive = torch.ones(W * H, dtype=torch.bool, device=device)
+    out, text = {}, []
+    for key, (base, _), (tex, tex_cam), hit, work, block in (
+            ("closest_hit_tex", terrain, terrain_tex, ch.nearest_hit_attrs,
+             b1, None),
+            ("blocked_hit_tex", large, large_tex, bh.nearest_hit_blocked,
+             b4, bh.BLOCK)):
+        o, d = primary_wavefront(tex, tex_cam, device)
+        got = hit(tex, o, d, 1e-4, alive)
+        plain = hit(base, o, d, 1e-4, alive)
+        table = ch._plain_result(tex, o, [got[0]], [got[1]], True)[2]
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+                and torch.equal(got[2][:26], plain[2])
+                and torch.equal(got[2], table)):
+            raise AssertionError(f"{key} 1080p primary: not the untextured "
+                                 f"kernel's hits and the table's rows")
+        hits = int(torch.isfinite(got[0]).sum())
+        del got, plain, table
+        untex1 = wrapper_ms(lambda: hit(base, o, d, 1e-4, alive), base, 10)
+        tex1 = wrapper_ms(lambda: hit(tex, o, d, 1e-4, alive), tex, 10)
+        tex2 = wrapper_ms(lambda: hit(tex, o, d, 1e-4, alive), tex, 10)
+        untex2 = wrapper_ms(lambda: hit(base, o, d, 1e-4, alive), base, 10)
+        # rays (o, d, alive: 25 bytes) in; t, id and the 40-column row out;
+        # the sphere, geometry, 48-column attribute and box planes once
+        b = bound(W * H * (25 + 4 * (2 + 40)) + plane_bytes(tex, block),
+                  work["ops"])
+        planes = ch.scene_planes(tex)
+        if key == "closest_hit_tex":
+            lib, shape = ch._library(), (planes.n_clusters,
+                                         planes.sup.shape[0])
+            shared = lib.rtt_closest_hit_shared_bytes(*shape)
+            per_sm = lib.rtt_closest_hit_blocks_per_sm(*shape, 1, 1)
+        else:
+            lib = bh._library()
+            shared = lib.rtt_blocked_hit_shared_bytes()
+            per_sm = lib.rtt_blocked_hit_blocks_per_sm(1, 1)
+        reg = [r for fn, r in regs[key[:-4]].items() if "ILb1ELb1E" in fn]
+        text.append(
+            f"{key} on {tex.num_tris} tris ({hits} hits): textured "
+            + " / ".join(f"{x:.3f}" for x in tex1) + ", "
+            + " / ".join(f"{x:.3f}" for x in tex2) + " ms; untextured on "
+            "the untextured terrain "
+            + " / ".join(f"{x:.3f}" for x in untex1) + ", "
+            + " / ".join(f"{x:.3f}" for x in untex2)
+            + f" ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['bytes']} B, {b['ops']} f32 ops); {reg} registers, "
+            f"{shared} B of shared memory a block, {per_sm} blocks an SM")
+        out[key] = dict(ms=min(tex1[0], tex2[0]),
+                        plain_ms=(b1_plain_ms if key == "closest_hit_tex"
+                                  else b4_plain_ms),
+                        plain_rays=PROBE_RAYS, max_abs_err=0.0, mismatches=0,
+                        library_ms=None, **b)
+    print(f"phase 2e main-path shape ({W}x{H} primary rays, blocked pixel "
+          f"order; ms with the plane cache warm / cleared before each call "
+          f"/ packing alone, in the order textured, textured, untextured, "
+          f"untextured as printed): " + "; ".join(text), flush=True)
+    return out
+
+
+def phase9_textured(device, terrain_tex, terrain_nee_tex, large_tex,
+                    untextured_rate, card, profile, out_dir):
+    """The textured paths: the forward render of terrain_tex through the
+    closest-hit kernel's textured variant and of terrain190k_tex through
+    the streaming kernel's, the NEE render of terrain_nee_tex (the
+    any-hit kernel on a textured scene), image parity, the
+    texture-recovery training step and gradient parity → the textured
+    variants' launch counts of the forward renders, and the row-major
+    scatter-add's of the training steps."""
+    scene, cam = terrain_tex
+    params = rt.RenderParams(**PARAMS)
+    segs = W * H * 1 * (BOUNCES + 1) * FRAMES
+    counts = {}
+    for name, (s, c), key in (("terrain_tex", terrain_tex, "closest_hit_tex"),
+                              ("terrain190k_tex", large_tex,
+                               "blocked_hit_tex")):
+        img, got, runs, enqueue_s = render_path(
+            name, s, c, params, launches(**{key: FRAMES * (BOUNCES + 1)}))
+        counts[key] = got[key]
+        rate = segs / float(np.median(runs))
+        print(f"phase 9 textured forward: {name} {s.num_tris} tris, "
+              f"{s.num_textures} textures of {TEX_RES}x{TEX_RES} (albedo and "
+              f"normal map) {W}x{H} b{BOUNCES} {FRAMES} frames: "
+              f"{rate_text(runs, segs)}; host enqueue {enqueue_s:.4f} s of "
+              f"the first); {rate / untextured_rate:.3f} x phase 3's "
+              f"untextured terrain ({untextured_rate / 1e6:.3f} M "
+              f"segments/s); launches {got}; image mean "
+              f"{float(img.mean()):.4f} | {card}", flush=True)
+        if out_dir:
+            np.save(os.path.join(out_dir, f"chip_smoke_{name}.npy"),
+                    img[::4, ::4].cpu().numpy())
+        if profile:
+            profile_frame(name, s, rt.camera_basis(c), params, out_dir)
+        del img
+    nee_render("9", "terrain_nee_tex", *terrain_nee_tex,
+               rt.RenderParams(**PARAMS, **NEE),
+               launches(closest_hit_tex=FRAMES * (BOUNCES + 1),
+                        any_hit=FRAMES * BOUNCES), card, profile, out_dir)
+    off, diff = image_parity("terrain_tex", scene, cam)
+    line, totals = train_path("terrain_tex", scene, cam, card,
+                              TEX_TRAIN_STEPS, "closest_hit_tex", profile,
+                              out_dir, textured=True)
+    counts["scatter_rows_rows"] = totals["scatter_rows_rows"]
+    print(f"phase 9 texture recovery: {line}", flush=True)
+    torch.cuda.empty_cache()
+    equal, gdiff, scales, worst, leaf = grad_parity(scene, cam, params,
+                                                    size=(128, 72))
+    if not scales["textures"]:
+        raise AssertionError("gradient parity: the textures' gradient is "
+                             "zero")
+    uv = {k: scales[k] for k in ("textures", "tri_uv0", "tri_uv1",
+                                 "tri_uv2")}
+    print(f"phase 9 textured parity (terrain_tex, cuda vs torch): 256x144 "
+          f"image frac_off {off} (gate {PARITY_GATE}), max |diff| {diff}; "
+          f"128x72 b{BOUNCES} gradient over {len(scales)} float leaves, all "
+          f"finite, images equal {equal} (max |diff| {gdiff}), largest max "
+          f"|diff| / max |g| {worst:.3g} ({leaf}; gate {GRAD_PARITY}); max "
+          f"|g| of the texture leaves {uv}", flush=True)
+    return counts
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1801,26 +2193,34 @@ def main(argv):
         secs[phase] = round(time.perf_counter() - t0, 1)
         return out
 
-    run("1", phase1_build)
+    regs = run("1", phase1_build)
     terrain = terrain_scene(device)
     terrain_nee = terrain_scene(device, with_lights=True)
+    terrain_tex = terrain_scene(device, textured=True)
+    terrain_nee_tex = terrain_scene(device, with_lights=True, textured=True)
     t0 = time.perf_counter()
     large = terrain_scene(device, n=LARGE_N)
     large_nee = terrain_scene(device, n=LARGE_N, with_lights=True)
     build_s = time.perf_counter() - t0
+    large_tex = terrain_scene(device, n=LARGE_N, textured=True)
     huge = terrain_scene(device, n=HUGE_N)
     timing = {"closest_hit": run("2", phase2_kernel_vs_plain, device,
-                                 terrain),
-              "scatter_rows": run("2b", phase2b_scatter_vs_plain, device,
-                                  terrain),
-              "any_hit": run("2c", phase2c_anyhit_vs_plain, device, terrain,
-                             terrain_nee),
-              "blocked_hit": run("2d", phase2d_blocked_vs_plain, device,
-                                 terrain, large, large_nee, huge)}
+                                 terrain)}
+    timing["scatter_rows"], timing["scatter_rows_rows"] = run(
+        "2b", phase2b_scatter_vs_plain, device, terrain, terrain_tex)
+    timing["any_hit"] = run("2c", phase2c_anyhit_vs_plain, device, terrain,
+                            terrain_nee)
+    timing["blocked_hit"] = run("2d", phase2d_blocked_vs_plain, device,
+                                terrain, large, large_nee, huge)
     del huge
     torch.cuda.empty_cache()
-    counts = {"closest_hit": run("3", phase3_main_path, device, terrain,
-                                 card, args.profile, args.out)}
+    timing.update(run("2e", phase2e_textured_vs_plain, device, terrain,
+                      terrain_tex, large, large_tex, regs,
+                      timing["closest_hit"], timing["blocked_hit"]))
+    torch.cuda.empty_cache()
+    counts = {}
+    counts["closest_hit"], terrain_rate = run(
+        "3", phase3_main_path, device, terrain, card, args.profile, args.out)
     run("4", phase4_parity, device, terrain)
     run("4b", phase4b_nee_parity, device, terrain_nee)
     counts["scatter_rows"] = run("5", phase5_training, device, terrain, card,
@@ -1835,12 +2235,18 @@ def main(argv):
     counts["blocked_hit"] = run("8", phase8_large_scene, device, large,
                                 large_nee, build_s, card, args.profile,
                                 args.out)
+    del large, large_nee
+    torch.cuda.empty_cache()
+    counts.update(run("9", phase9_textured, device, terrain_tex,
+                      terrain_nee_tex, large_tex, terrain_rate, card,
+                      args.profile, args.out))
     print(f"seconds per phase: {secs}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("max_abs_err", "mismatches", "ms", "plain_ms", "plain_rays",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
+        **({"variant": "textured=True"} if name in TEXTURED else {}),
         launches=counts[name], **{k: timing[name][k] for k in keys})
         for name, (source, replaces) in KERNELS.items()]}))
     print(f"card: {card}")

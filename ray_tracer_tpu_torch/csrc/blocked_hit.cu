@@ -1,16 +1,17 @@
 // Streaming closest-hit kernel (large scenes) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel ray_tracer_tpu/ops/pallas_intersect.py:
-// _make_blocked_kernel (want_attrs=True and False), called there through
-// _nearest_hit_blocked_call, with its per-step block lists (_block_lists), by
-// nearest_hit_attrs_pallas / nearest_hit_pallas on scenes past the resident
-// kernel's budget (_use_blocked).
+// _make_blocked_kernel (want_attrs=True and False, textured=True and False),
+// called there through _nearest_hit_blocked_call, with its per-step block
+// lists (_block_lists), by nearest_hit_attrs_pallas / nearest_hit_pallas on
+// scenes past the resident kernel's budget (_use_blocked).
 //
 // What it computes is the closest-hit kernel's (closest_hit.cu): for every ray
 // i the closest sphere or triangle hit with t >= t_min, ids spheres [0, SP)
 // and triangles [SP, SP + TP), t = +inf and id 0 on a miss or a dead lane,
 // and with kWantAttrs the winner's 26-column merged-table row (zero on a
-// miss).
+// miss), 40 columns from the 48-column triangle planes with kTextured (a
+// textured scene's rows; only write_hit's widths differ).
 //
 // How: a four-level hierarchy over the triangles, which are ordered so that
 // each run of 64 (a cluster), of 8 clusters (a super) and of block_clusters
@@ -164,7 +165,7 @@ __device__ __forceinline__ void visit_round(
 }
 
 // Two blocks an SM is what the shared memory allows: up to 128 registers.
-template <bool kWantAttrs>
+template <bool kWantAttrs, bool kTextured>
 __global__ void __launch_bounds__(kThreads, 2)
 blocked_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const unsigned char* __restrict__ alive, int R,
@@ -206,18 +207,30 @@ blocked_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   &best);
   }
   if (i < R)
-    write_hit(i, R, best_t, best, SP, sph, tri, copy_map, t_out, id_out,
-              kWantAttrs ? rows : nullptr);
+    write_hit<kTextured ? kRowsTex : kRows,
+              kTextured ? kTriColsTex : kTriCols>(
+        i, R, best_t, best, SP, sph, tri, copy_map, t_out, id_out,
+        kWantAttrs ? rows : nullptr);
 }
 
-// Allows a variant of the kernel shared_bytes of dynamic shared memory on
+// The kernel's variants: 0 ids only (which serves textured scenes too: it
+// copies no row), 1 rows, 2 a textured scene's rows.
+int variant(int want_attrs, int textured) {
+  return want_attrs ? (textured ? 2 : 1) : 0;
+}
+
+auto kernel_of(int v) {
+  return v == 2 ? blocked_hit_kernel<true, true>
+       : v == 1 ? blocked_hit_kernel<true, false>
+                : blocked_hit_kernel<false, false>;
+}
+
+// Allows variant v of the kernel shared_bytes of dynamic shared memory on
 // the current device; the runtime is asked once per variant, device and size
 // (hit_common.cuh:allow_shared).
-cudaError_t allow(int want_attrs, size_t shared_bytes) {
-  static size_t granted[2][kMaxDevices];
-  if (want_attrs)
-    return allow_shared(blocked_hit_kernel<true>, shared_bytes, granted[1]);
-  return allow_shared(blocked_hit_kernel<false>, shared_bytes, granted[0]);
+cudaError_t allow(int v, size_t shared_bytes) {
+  static size_t granted[3][kMaxDevices];
+  return allow_shared(kernel_of(v), shared_bytes, granted[v]);
 }
 
 }  // namespace
@@ -227,14 +240,15 @@ extern "C" {
 // Bytes of dynamic shared memory a launch takes.
 int rtt_blocked_hit_shared_bytes() { return static_cast<int>(kSharedBytes); }
 
-// Thread blocks an SM keeps resident; 0 when the shared memory does not fit.
-int rtt_blocked_hit_blocks_per_sm(int want_attrs) {
-  if (allow(want_attrs, kSharedBytes) != cudaSuccess) {
+// Thread blocks an SM keeps resident of a variant; 0 when the shared memory
+// does not fit.
+int rtt_blocked_hit_blocks_per_sm(int want_attrs, int textured) {
+  const int v = variant(want_attrs, textured);
+  if (allow(v, kSharedBytes) != cudaSuccess) {
     cudaGetLastError();  // a size that does not fit is an answer, not a fault
     return 0;
   }
-  return want_attrs ? resident_blocks(blocked_hit_kernel<true>, kSharedBytes)
-                    : resident_blocks(blocked_hit_kernel<false>, kSharedBytes);
+  return resident_blocks(kernel_of(v), kSharedBytes);
 }
 
 // Launches the kernel on `stream` and returns the CUDA error (0 = ok), or
@@ -242,25 +256,25 @@ int rtt_blocked_hit_blocks_per_sm(int want_attrs) {
 // pointers are device pointers to contiguous arrays:
 //   o, d (R, 3) f32; alive (R,) bytes or null (all alive); sph (SP, 16) f32,
 //   its first n_spheres rows the real spheres; geo (TP, 12) f32; tri
-//   (TP, 32) f32; clu (>= n_clusters, 8) f32; sup (ceil(n_clusters / 8), 8)
-//   f32, super s spanning clusters [8 s, 8 s + 8); blk (>= n_blocks, 8)
-//   f32, block b spanning clusters [b * block_clusters, (b + 1) *
-//   block_clusters); copy_map (2, 26) i32;
-//   t_out (R,) f32; id_out (R,) i32; rows (26, R) f32, written only when
-//   want_attrs != 0.
+//   (TP, 32) f32, (TP, 48) when textured != 0; clu (>= n_clusters, 8) f32;
+//   sup (ceil(n_clusters / 8), 8) f32, super s spanning clusters
+//   [8 s, 8 s + 8); blk (>= n_blocks, 8) f32, block b spanning clusters
+//   [b * block_clusters, (b + 1) * block_clusters); copy_map (2, 26) i32,
+//   (2, 40) when textured; t_out (R,) f32; id_out (R,) i32; rows (26, R)
+//   f32, (40, R) when textured, written only when want_attrs != 0.
 int rtt_blocked_hit(const float* o, const float* d,
                     const unsigned char* alive, int R, const float* sph,
                     int SP, int n_spheres, const float* geo,
                     const float* tri, const float* clu, int n_clusters,
                     const float* sup, const float* blk, int n_blocks,
                     int block_clusters, const int* copy_map, float t_min,
-                    int want_attrs, float* t_out, int* id_out, float* rows,
-                    void* stream) {
+                    int want_attrs, int textured, float* t_out, int* id_out,
+                    float* rows, void* stream) {
   if (block_clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return 0;
-  auto kernel = want_attrs ? blocked_hit_kernel<true>
-                           : blocked_hit_kernel<false>;
-  const cudaError_t err = allow(want_attrs, kSharedBytes);
+  const int v = variant(want_attrs, textured);
+  auto kernel = kernel_of(v);
+  const cudaError_t err = allow(v, kSharedBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(kThreads);
   const dim3 grid((R + kThreads - 1) / kThreads);

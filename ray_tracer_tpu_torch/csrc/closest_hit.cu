@@ -3,8 +3,8 @@
 // memory.
 //
 // Replaces the TPU kernel ray_tracer_tpu/ops/pallas_intersect.py:_make_kernel
-// (want_attrs=True and False), called there through _nearest_hit_call by
-// nearest_hit_attrs_pallas / nearest_hit_pallas.
+// (want_attrs=True and False, textured=True and False), called there through
+// _nearest_hit_call by nearest_hit_attrs_pallas / nearest_hit_pallas.
 //
 // What it computes, for every ray i:
 //   * the closest hit over all spheres (near-root quadratic) and triangles
@@ -17,7 +17,11 @@
 //   * with kWantAttrs, the winner's 26-column merged-table row
 //     (ops/intersect.py:_pack_attrs) copied from the plane arrays through the
 //     copy map (ops/closest_hit.py:_attr_copy_maps), stored column-major as
-//     rows[col * R + i]; misses give a zero row.
+//     rows[col * R + i]; misses give a zero row. With kTextured (a textured
+//     scene's rows) the row is 40 columns, copied from 48-column triangle
+//     planes: uv0-2, tangent, bitangent and the two texture ids besides.
+//     Only write_hit's widths differ: the traversal reads the geometry plane
+//     alone, and the untextured variants compile as they did.
 //
 // What bounds it on this card: instructions issued, not bytes (the planes of
 // a 16k-triangle scene are 2 MB and stay in the 50 MB L2; rays in and rows
@@ -61,7 +65,7 @@ namespace {
 // Three blocks an SM is what the shared memory allows below the crossover;
 // saying so lets the compiler take up to 85 registers instead of spilling to
 // stay at 64.
-template <bool kWantAttrs>
+template <bool kWantAttrs, bool kTextured>
 __global__ void __launch_bounds__(kThreads, 3)
 closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const unsigned char* __restrict__ alive, int R,
@@ -100,18 +104,30 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
     }
   }
   if (i < R)
-    write_hit(i, R, best_t, best, SP, sph, tri, copy_map, t_out, id_out,
-              kWantAttrs ? rows : nullptr);
+    write_hit<kTextured ? kRowsTex : kRows,
+              kTextured ? kTriColsTex : kTriCols>(
+        i, R, best_t, best, SP, sph, tri, copy_map, t_out, id_out,
+        kWantAttrs ? rows : nullptr);
 }
 
-// Allows a variant of the kernel shared_bytes of dynamic shared memory on
+// The kernel's variants: 0 ids only (which serves textured scenes too: it
+// copies no row), 1 rows, 2 a textured scene's rows.
+int variant(int want_attrs, int textured) {
+  return want_attrs ? (textured ? 2 : 1) : 0;
+}
+
+auto kernel_of(int v) {
+  return v == 2 ? closest_hit_kernel<true, true>
+       : v == 1 ? closest_hit_kernel<true, false>
+                : closest_hit_kernel<false, false>;
+}
+
+// Allows variant v of the kernel shared_bytes of dynamic shared memory on
 // the current device; the runtime is asked once per variant, device and size
 // (hit_common.cuh:allow_shared).
-cudaError_t allow(int want_attrs, size_t shared_bytes) {
-  static size_t granted[2][kMaxDevices];
-  if (want_attrs)
-    return allow_shared(closest_hit_kernel<true>, shared_bytes, granted[1]);
-  return allow_shared(closest_hit_kernel<false>, shared_bytes, granted[0]);
+cudaError_t allow(int v, size_t shared_bytes) {
+  static size_t granted[3][kMaxDevices];
+  return allow_shared(kernel_of(v), shared_bytes, granted[v]);
 }
 
 }  // namespace
@@ -124,18 +140,18 @@ int rtt_closest_hit_shared_bytes(int n_clusters, int n_supers) {
          kWarps * 2 * kTileFloats * 4;
 }
 
-// Thread blocks an SM keeps resident for this hierarchy; 0 when it does not
-// fit.
+// Thread blocks an SM keeps resident of a variant for this hierarchy; 0 when
+// it does not fit.
 int rtt_closest_hit_blocks_per_sm(int n_clusters, int n_supers,
-                                  int want_attrs) {
+                                  int want_attrs, int textured) {
   const size_t shared_bytes =
       rtt_closest_hit_shared_bytes(n_clusters, n_supers);
-  if (allow(want_attrs, shared_bytes) != cudaSuccess) {
+  const int v = variant(want_attrs, textured);
+  if (allow(v, shared_bytes) != cudaSuccess) {
     cudaGetLastError();  // a size that does not fit is an answer, not a fault
     return 0;
   }
-  return want_attrs ? resident_blocks(closest_hit_kernel<true>, shared_bytes)
-                    : resident_blocks(closest_hit_kernel<false>, shared_bytes);
+  return resident_blocks(kernel_of(v), shared_bytes);
 }
 
 // Launches the kernel on `stream` and returns the CUDA error (0 = ok): a
@@ -144,24 +160,26 @@ int rtt_closest_hit_blocks_per_sm(int n_clusters, int n_supers,
 // memory. All pointers are device pointers to contiguous arrays:
 //   o, d (R, 3) f32; alive (R,) bytes or null (all alive); sph (SP, 16) f32,
 //   its first n_spheres rows the real spheres; geo (TP, 12) f32; tri
-//   (TP, 32) f32; clu (>= n_clusters, 8) f32; sup (n_supers, 8) f32 with
-//   n_supers = ceil(n_clusters / 8); copy_map (2, 26) i32; t_out (R,) f32;
-//   id_out (R,) i32; rows (26, R) f32, written only when want_attrs != 0.
+//   (TP, 32) f32, (TP, 48) when textured != 0; clu (>= n_clusters, 8) f32;
+//   sup (n_supers, 8) f32 with n_supers = ceil(n_clusters / 8); copy_map
+//   (2, 26) i32, (2, 40) when textured; t_out (R,) f32; id_out (R,) i32;
+//   rows (26, R) f32, (40, R) when textured, written only when
+//   want_attrs != 0.
 int rtt_closest_hit(const float* o, const float* d,
                     const unsigned char* alive, int R, const float* sph,
                     int SP, int n_spheres, const float* geo,
                     const float* tri, const float* clu, int n_clusters,
                     const float* sup, int n_supers, const int* copy_map,
-                    float t_min, int want_attrs, float* t_out, int* id_out,
-                    float* rows, void* stream) {
+                    float t_min, int want_attrs, int textured, float* t_out,
+                    int* id_out, float* rows, void* stream) {
   if (R <= 0) return 0;
   if (n_supers != (n_clusters + kSuper - 1) / kSuper)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t shared_bytes =
       rtt_closest_hit_shared_bytes(n_clusters, n_supers);
-  auto kernel = want_attrs ? closest_hit_kernel<true>
-                           : closest_hit_kernel<false>;
-  const cudaError_t err = allow(want_attrs, shared_bytes);
+  const int v = variant(want_attrs, textured);
+  auto kernel = kernel_of(v);
+  const cudaError_t err = allow(v, shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(kThreads);
   const dim3 grid((R + kThreads - 1) / kThreads);

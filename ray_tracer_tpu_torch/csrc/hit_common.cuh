@@ -51,9 +51,11 @@ constexpr int kSuper = 8;      // clusters per super box
 constexpr int kGroup = 32;     // clusters per traversal group (a mask word)
 constexpr int kSphCols = 16;   // _pack_spheres columns
 constexpr int kTriCols = 32;   // _pack_tris columns (untextured)
+constexpr int kTriColsTex = 48;  // ... textured (uv, tangent frame, ids)
 constexpr int kGeoCols = 12;   // _pack_geo columns: a e1 e2 n
 constexpr int kBoxCols = 8;    // box plane columns: lo(3) hi(3) pad(2)
 constexpr int kRows = 26;      // merged-table width (untextured)
+constexpr int kRowsTex = 40;   // ... textured
 constexpr int kThreads = 256;  // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileFloats = kCluster * kGeoCols;  // one cluster's geometry
@@ -192,10 +194,12 @@ __device__ __forceinline__ bool triangle_hit4(const float4& q0,
 }
 
 // Writes ray i's outputs: t, id (0 on a miss) and, when rows is not null,
-// the winner's merged-table row copied from the plane arrays through the
-// copy map (row 0: sphere plane columns, row 1: triangle plane columns,
-// -1: zero column), column-major as rows[col * R + i]; a miss (best < 0)
-// gives a zero row.
+// the winner's merged-table row of kRowCols columns (kRows, or kRowsTex on a
+// textured scene) copied from the plane arrays (triangle rows kPlaneCols
+// wide: kTriCols or kTriColsTex) through the copy map (row 0: sphere plane
+// columns, row 1: triangle plane columns, -1: zero column), column-major as
+// rows[col * R + i]; a miss (best < 0) gives a zero row.
+template <int kRowCols, int kPlaneCols>
 __device__ __forceinline__ void write_hit(
     int i, int R, float best_t, int best, int SP,
     const float* __restrict__ sph, const float* __restrict__ tri,
@@ -210,11 +214,11 @@ __device__ __forceinline__ void write_hit(
     src = sph + best * kSphCols;
     cols = copy_map;
   } else if (best >= SP) {
-    src = tri + (best - SP) * kTriCols;
-    cols = copy_map + kRows;
+    src = tri + (best - SP) * kPlaneCols;
+    cols = copy_map + kRowCols;
   }
 #pragma unroll
-  for (int c = 0; c < kRows; ++c) {
+  for (int c = 0; c < kRowCols; ++c) {
     float val = 0.0f;
     if (src != nullptr) {
       const int col = cols[c];

@@ -15,7 +15,9 @@ triangles. The packed planes come from ``closest_hit.scene_planes``.
   * ``nearest_hit_blocked`` — the wrapper: launches the kernel for CUDA
     tensors; the plain version runs only for tensors on the CPU. Anything
     the kernel does not take raises. ``nearest_hit_blocked.launches``
-    counts kernel launches, ``.ids_launches`` those without rows.
+    counts the untextured variants' launches, ``.ids_launches`` those
+    without rows, ``.tex_launches`` the textured variant's (a textured
+    scene's rows).
   * ``nearest_hit_blocked_reference`` — the plain version: every sphere,
     then the triangles block by block in ascending order, no culling.
 """
@@ -112,11 +114,11 @@ def _library() -> ctypes.CDLL:
     lib = build.load("blocked_hit")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rtt_blocked_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, i, p, p, i,
-                                    i, p, ctypes.c_float, i, p, p, p, p]
+                                    i, p, ctypes.c_float, i, i, p, p, p, p]
     lib.rtt_blocked_hit.restype = i
     lib.rtt_blocked_hit_shared_bytes.argtypes = []
     lib.rtt_blocked_hit_shared_bytes.restype = i
-    lib.rtt_blocked_hit_blocks_per_sm.argtypes = [i]
+    lib.rtt_blocked_hit_blocks_per_sm.argtypes = [i, i]
     lib.rtt_blocked_hit_blocks_per_sm.restype = i
     lib.rtt_blocked_hit_error_string.argtypes = [i]
     lib.rtt_blocked_hit_error_string.restype = ctypes.c_char_p
@@ -126,8 +128,8 @@ def _library() -> ctypes.CDLL:
 def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
                         want_attrs=True, block=BLOCK):
     """Closest hit of each ray through the block hierarchy → (t (R,),
-    prim_id (R,) int32, rows (26, R)) with ``want_attrs``, else
-    (t, prim_id): the closest-hit kernel's outputs.
+    prim_id (R,) int32, rows (26, R), (40, R) on a textured scene) with
+    ``want_attrs``, else (t, prim_id): the closest-hit kernel's outputs.
 
     CUDA tensors launch the kernel (built at first use), for any number
     of blocks; CPU tensors take the plain version; any other device or
@@ -144,11 +146,12 @@ def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
     _check_inputs(scene, o, d, alive)
     block_clusters, n_clusters, n_blocks = block_layout(scene, block)
     R, dev = o.shape[0], o.device
-    t_out, id_out, rows = _hit_outputs(R, dev, want_attrs)
+    t_out, id_out, rows = _hit_outputs(scene, R, dev, want_attrs)
     if R == 0:
         return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
     lib = _library()
     planes = scene_planes(scene)
+    textured = want_attrs and scene.num_textures > 0
     (o, d, alive), ray_ptrs = _ray_args(o, d, alive)
     with torch.cuda.device(dev):
         err = lib.rtt_blocked_hit(
@@ -157,17 +160,21 @@ def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
             planes.tri.data_ptr(), planes.clu.data_ptr(), n_clusters,
             planes.sup.data_ptr(),
             planes.block_boxes(block_clusters).data_ptr(), n_blocks,
-            block_clusters, _copy_map_tensor(dev).data_ptr(), float(t_min),
-            int(want_attrs), t_out.data_ptr(), id_out.data_ptr(),
-            rows.data_ptr() if want_attrs else None,
+            block_clusters, _copy_map_tensor(dev, textured).data_ptr(),
+            float(t_min), int(want_attrs), int(textured), t_out.data_ptr(),
+            id_out.data_ptr(), rows.data_ptr() if want_attrs else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("streaming closest-hit kernel launch failed: "
                            + lib.rtt_blocked_hit_error_string(err).decode())
-    nearest_hit_blocked.launches += 1
-    nearest_hit_blocked.ids_launches += not want_attrs
+    if textured:
+        nearest_hit_blocked.tex_launches += 1
+    else:
+        nearest_hit_blocked.launches += 1
+        nearest_hit_blocked.ids_launches += not want_attrs
     return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
 
 
 nearest_hit_blocked.launches = 0
 nearest_hit_blocked.ids_launches = 0
+nearest_hit_blocked.tex_launches = 0

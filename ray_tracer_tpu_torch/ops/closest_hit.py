@@ -6,7 +6,8 @@ Port of the resident closest-hit kernel of
 ``nearest_hit_attrs_pallas`` / ``nearest_hit_pallas``). Same inputs and
 outputs: rays (R, 3) + liveness → t (R,) f32 (+inf on miss), prim id (R,)
 int32 (0 on miss) and, with ``want_attrs``, the winner's merged-table row
-(26, R) f32 (zero on miss), equal to ``_pack_attrs(scene)[id].T``.
+(26, R) f32, (40, R) on a textured scene (zero on miss), equal to
+``_pack_attrs(scene)[id].T``.
 
   * ``nearest_hit_attrs`` — the wrapper: launches the kernel for CUDA
     tensors; the plain version runs only for tensors on the CPU. Anything
@@ -22,12 +23,15 @@ int32 (0 on miss) and, with ``want_attrs``, the winner's merged-table row
 The plane arrays share the reference's layouts: spheres (SP, 16)
 ``[c(3) | r² | valid | albedo(3) | emission(3) | es | smooth | pad(3)]``,
 triangles (TP, 32) ``[a(3) | e1(3) | e2(3) | n(3) | n0 n1 n2 (9) |
-albedo(3) | emission(3) | es | smooth | pad(3)]``, cluster boxes (C, 8)
+albedo(3) | emission(3) | es | smooth | pad(3)]``, on a textured scene
+(TP, 48) with ``[uv0 uv1 uv2 (6) | tan(3) | bitan(3) | tex | ntex |
+pad(2)]`` appended, cluster boxes (C, 8)
 ``[lo(3) | hi(3) | pad(2)]`` over runs of 64 triangles and super boxes
 over runs of 8 clusters. The kernel reads the triangles' geometry from a
 plane of its own, (TP, 12) ``[a | e1 | e2 | n]``: 48-byte rows, so that a
 cluster is one contiguous 3,072-byte run for its asynchronous copies; the
-32-column plane is where it copies the winner's attributes from.
+32- or 48-column plane is where it copies the winner's attributes
+from.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import functools
 import torch
 
 from ..scene import Scene
-from .intersect import _pack_attrs, cross, merged_width
+from .intersect import _pack_attrs, attr_width, cross, merged_width
 
 CLUSTER = 64           # triangles per culling cluster (the kernel's kCluster)
 SUPER = 8              # clusters per super box (the kernel's kSuper)
@@ -53,21 +57,35 @@ REFERENCE_CHUNK = 4096
 # Packers (shared by the kernel and the plain version)
 # ---------------------------------------------------------------------------
 
-def _pack_tris(scene: Scene):
-    """(TP, 32) triangle planes. n = e1 × e2 is the unnormalized geometric
-    normal, computed with separately rounded products (no fused
-    multiply-add), as every other float operation here."""
+def _pack_tris(scene: Scene, textured: bool = False):
+    """(TP, 32) triangle planes; with ``textured`` (TP, 48), columns 32:48
+    ``[uv0 uv1 uv2 | tan | bitan | tex | ntex | pad(2)]`` with the ids as
+    f32 (the reference's ``_pack_tris(..., textured=True)``). n = e1 × e2
+    is the unnormalized geometric normal, computed with separately rounded
+    products (no fused multiply-add), as every other float operation
+    here."""
     a = scene.tri_v0
     e1 = scene.tri_v1 - scene.tri_v0
     e2 = scene.tri_v2 - scene.tri_v0
     pad = torch.zeros_like(a)
-    return torch.cat([
+    cols = [
         a, e1, e2, cross(e1, e2),
         scene.tri_n0, scene.tri_n1, scene.tri_n2,
         scene.tri_albedo, scene.tri_emission,
         scene.tri_emission_strength[:, None],
         scene.tri_smoothness[:, None], pad,
-    ], dim=1).contiguous()
+    ]
+    if textured:
+        cols += [scene.tri_uv0, scene.tri_uv1, scene.tri_uv2,
+                 scene.tri_tan, scene.tri_bitan,
+                 scene.tri_tex[:, None].to(torch.float32),
+                 scene.tri_ntex[:, None].to(torch.float32), pad[:, :2]]
+    return torch.cat(cols, dim=1).contiguous()
+
+
+def tri_cols(textured: bool) -> int:
+    """Columns of the triangle planes."""
+    return 48 if textured else 32
 
 
 def _pack_spheres(scene: Scene):
@@ -89,21 +107,24 @@ def _attr_copy_maps(textured: bool = False):
     """(merged-table column, plane column) copy maps for the winner-row
     extraction. The planes carry columns the merged table omits: the sphere
     ``valid`` flag (plane column 4) and the triangle geometric normal
-    (plane columns 9:12)."""
-    if textured:
-        raise NotImplementedError("textured scenes on the cuda backend")
+    (plane columns 9:12); the textured columns 26:40 come from plane
+    columns 32:46."""
     sph = list(zip(range(12), (0, 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12)))
     tri = [(r, r) for r in range(9)] + [(r, r + 3) for r in range(9, 26)]
+    if textured:
+        tri += [(r, r + 6) for r in range(26, 38)] + [(38, 44), (39, 45)]
     return sph, tri
 
 
 @functools.lru_cache(maxsize=None)
-def _copy_map_tensor(device: torch.device) -> torch.Tensor:
-    """(2, 26) int32: plane column of each merged-table column, row 0 for
-    spheres, row 1 for triangles, -1 where the table holds zero."""
-    W = merged_width(False)
+def _copy_map_tensor(device: torch.device, textured: bool = False
+                     ) -> torch.Tensor:
+    """(2, 26) int32, (2, 40) with ``textured``: plane column of each
+    merged-table column, row 0 for spheres, row 1 for triangles, -1 where
+    the table holds zero."""
+    W = merged_width(textured)
     table = [[-1] * W, [-1] * W]
-    for k, pairs in enumerate(_attr_copy_maps(False)):
+    for k, pairs in enumerate(_attr_copy_maps(textured)):
         for row, col in pairs:
             table[k][row] = col
     return torch.tensor(table, dtype=torch.int32, device=device)
@@ -160,18 +181,23 @@ _PLANE_FIELDS = (
     "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
     "tri_albedo", "tri_emission", "tri_emission_strength", "tri_smoothness",
     "tri_valid")
+# ... and those the textured planes read besides
+_TEXTURED_PLANE_FIELDS = _PLANE_FIELDS + (
+    "tri_uv0", "tri_uv1", "tri_uv2", "tri_tan", "tri_bitan", "tri_tex",
+    "tri_ntex")
 
 
 class ScenePlanes:
     """The kernels' packed inputs of one scene: ``sph`` (SP, 16), ``geo``
-    (TP, 12), ``tri`` (TP, 32), ``clu`` (TP / 64, 8), ``sup`` (real supers,
-    8) and, through ``block_boxes``, the streaming kernel's block boxes.
-    Kernel inputs only: none requires grad."""
+    (TP, 12), ``tri`` (TP, 32; 48 on a textured scene), ``clu`` (TP / 64,
+    8), ``sup`` (real supers, 8) and, through ``block_boxes``, the
+    streaming kernel's block boxes. Kernel inputs only: none requires
+    grad."""
 
     def __init__(self, scene: Scene):
         with torch.no_grad():  # the planes are kernel input, not graph nodes
             self.sph = _pack_spheres(scene)
-            self.tri = _pack_tris(scene)
+            self.tri = _pack_tris(scene, scene.num_textures > 0)
             self.geo = _pack_geo(self.tri)
             self.clu = _cluster_aabbs(scene)
             self.n_clusters = -(-scene.num_tris // CLUSTER)
@@ -199,15 +225,16 @@ def scene_planes(scene: Scene) -> ScenePlanes:
     render packs once per scene). One entry per device. The entry keeps
     the keyed tensors alive, so their addresses cannot be handed to other
     tensors while it stands; it also keeps that scene's planes (128 + 48
-    bytes a triangle) on the device until another scene is packed there or
-    ``clear_plane_cache()`` is called.
+    bytes a triangle, 192 + 48 textured) on the device until another
+    scene is packed there or ``clear_plane_cache()`` is called.
 
     The contract: a scene changes through new tensors or through in-place
     operations that autograd sees. A write that leaves ``_version`` as it
     was (through ``.data``, ``set_`` or a kernel given the raw pointer) is
     not seen, and the kernels would go on reading the planes packed before
     it: after such a write the caller calls ``clear_plane_cache()``."""
-    leaves = [getattr(scene, k) for k in _PLANE_FIELDS]
+    fields = _TEXTURED_PLANE_FIELDS if scene.num_textures else _PLANE_FIELDS
+    leaves = [getattr(scene, k) for k in fields]
     key = (scene.num_tris,) + tuple(
         (x.data_ptr(), x._version, x.shape) for x in leaves)
     entry = _plane_cache.get(scene.device)
@@ -333,11 +360,11 @@ def _library() -> ctypes.CDLL:
     lib = build.load("closest_hit")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rtt_closest_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, i, p, i,
-                                    p, ctypes.c_float, i, p, p, p, p]
+                                    p, ctypes.c_float, i, i, p, p, p, p]
     lib.rtt_closest_hit.restype = i
     lib.rtt_closest_hit_shared_bytes.argtypes = [i, i]
     lib.rtt_closest_hit_shared_bytes.restype = i
-    lib.rtt_closest_hit_blocks_per_sm.argtypes = [i, i, i]
+    lib.rtt_closest_hit_blocks_per_sm.argtypes = [i, i, i, i]
     lib.rtt_closest_hit_blocks_per_sm.restype = i
     lib.rtt_error_string.argtypes = [i]
     lib.rtt_error_string.restype = ctypes.c_char_p
@@ -360,12 +387,11 @@ def _check_inputs(scene: Scene, o, d, alive):
         raise ValueError("alive must be an (R,) bool tensor beside the rays")
     if scene.device != dev:
         raise ValueError(f"scene is on {scene.device}, rays on {dev}")
-    if scene.num_textures:
-        raise NotImplementedError("textured scenes on the cuda backend")
     if scene.padded_tris % CLUSTER:
         raise ValueError(f"padded triangle count {scene.padded_tris} is not "
                          f"a multiple of the {CLUSTER}-triangle cluster")
-    if max(o.shape[0], scene.padded_tris) * merged_width(False) >= 2 ** 31:
+    if max(o.shape[0] * attr_width(scene), scene.padded_tris * tri_cols(
+            scene.num_textures > 0)) >= 2 ** 31:
         raise ValueError("too many rays or triangles for 32-bit indexing")
 
 
@@ -398,21 +424,24 @@ def _ray_args(o, d, alive):
                            None if alive is None else alive.data_ptr())
 
 
-def _hit_outputs(R, dev, want_attrs):
-    """Uninitialised (t, prim_id, rows) outputs, rows None without
-    ``want_attrs``."""
+def _hit_outputs(scene, R, dev, want_attrs):
+    """Uninitialised (t, prim_id, rows) outputs, rows (attr_width, R) or
+    None without ``want_attrs``."""
     return (torch.empty((R,), dtype=torch.float32, device=dev),
             torch.empty((R,), dtype=torch.int32, device=dev),
-            torch.empty((merged_width(False), R), dtype=torch.float32,
+            torch.empty((attr_width(scene), R), dtype=torch.float32,
                         device=dev) if want_attrs else None)
 
 
 def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
                       want_attrs=True):
-    """Closest hit of each ray → (t (R,), prim_id (R,) int32, rows (26, R))
-    with ``want_attrs``, else (t, prim_id).
+    """Closest hit of each ray → (t (R,), prim_id (R,) int32, rows (26, R),
+    (40, R) on a textured scene) with ``want_attrs``, else (t, prim_id).
 
-    CUDA tensors launch the kernel (built at first use); CPU tensors take
+    CUDA tensors launch the kernel (built at first use): its textured
+    variant where a textured scene's rows are wanted, counted in
+    ``nearest_hit_attrs.tex_launches``, else its untextured variants,
+    counted in ``nearest_hit_attrs.launches``. CPU tensors take
     the plain version; any other device, input the kernel does not take,
     or a scene whose boxes do not fit into the kernel's shared memory
     raises. Nothing falls back silently. The scene's packed planes come
@@ -425,11 +454,12 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
         raise ValueError(f"no closest-hit kernel for device {o.device}")
     _check_inputs(scene, o, d, alive)
     R, dev = o.shape[0], o.device
-    t_out, id_out, rows = _hit_outputs(R, dev, want_attrs)
+    t_out, id_out, rows = _hit_outputs(scene, R, dev, want_attrs)
     if R == 0:
         return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
     lib = _library()
     planes = scene_planes(scene)
+    textured = want_attrs and scene.num_textures > 0
     n_clusters, n_supers = planes.n_clusters, planes.sup.shape[0]
     _check_shared("closest-hit",
                   lib.rtt_closest_hit_shared_bytes(n_clusters, n_supers),
@@ -440,15 +470,20 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
             *ray_ptrs, R, planes.sph.data_ptr(), scene.padded_spheres,
             scene.num_spheres, planes.geo.data_ptr(),
             planes.tri.data_ptr(), planes.clu.data_ptr(), n_clusters,
-            planes.sup.data_ptr(), n_supers, _copy_map_tensor(dev).data_ptr(),
-            float(t_min), int(want_attrs), t_out.data_ptr(),
+            planes.sup.data_ptr(), n_supers,
+            _copy_map_tensor(dev, textured).data_ptr(), float(t_min),
+            int(want_attrs), int(textured), t_out.data_ptr(),
             id_out.data_ptr(), rows.data_ptr() if want_attrs else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("closest-hit kernel launch failed: "
                            + lib.rtt_error_string(err).decode())
-    nearest_hit_attrs.launches += 1
+    if textured:
+        nearest_hit_attrs.tex_launches += 1
+    else:
+        nearest_hit_attrs.launches += 1
     return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
 
 
 nearest_hit_attrs.launches = 0
+nearest_hit_attrs.tex_launches = 0

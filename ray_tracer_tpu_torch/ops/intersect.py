@@ -32,6 +32,7 @@ import dataclasses
 import torch
 
 from ..scene import TENSOR_FIELDS, Scene
+from ..texture import decode_normal_map, sample_bilinear
 
 TRI_DET_EPS = 1e-6  # back-face / parallel cutoff
 INF = float("inf")
@@ -186,6 +187,26 @@ def _pack_attrs(scene: Scene):
     return torch.cat([sp, tp], dim=0)
 
 
+def _textured_shading(textures, albedo, normal, uv, tex, ntex, tan, bitan,
+                      with_normal_maps=True):
+    """Texture-map the shading attributes of lanes whose winner carries
+    texture ids: the albedo times the base-colour map, the normal turned by
+    the tangent-frame normal map. Lanes with id -1 pass through
+    (``sample_bilinear`` gives white there). ``with_normal_maps=False``
+    (static, from ``scene.num_normal_maps``) skips the second fetch. The
+    reference gates both fetches to live ray tiles
+    (``sample_bilinear_gated``), which changes only lanes whose values are
+    unused; the port fetches every lane."""
+    albedo = albedo * sample_bilinear(textures, tex, uv)
+    if with_normal_maps:
+        nm = decode_normal_map(sample_bilinear(textures, ntex, uv))
+        n_mapped = torch.stack(_norm3(*(
+            nm[:, 0:1] * tan + nm[:, 1:2] * bitan
+            + nm[:, 2:3] * normal).unbind(-1)), dim=-1)
+        normal = torch.where((ntex >= 0)[:, None], n_mapped, normal)
+    return albedo, normal
+
+
 def _norm3(x, y, z, eps=1e-24):
     """Safe normalize on (R,) components; the squared norm is summed as
     (x*x + y*y) + z*z, like the reference."""
@@ -201,14 +222,13 @@ def _cross3(ax, ay, az, bx, by, bz):
 
 
 def hit_attributes_from_rows(scene: Scene, rows, o, d, prim_id, miss, t_min):
-    """Winner recompute from merged-table rows (26, R): the winners'
-    ``_pack_attrs`` rows, columns first. Both the sphere and the triangle
-    recompute run on every lane and ``prim_id`` selects; the double
-    ``where`` guards keep every lane NaN-free. Miss lanes get t = 0 and
-    are masked downstream through ``Hit.hit``."""
-    if scene.num_textures:
-        raise NotImplementedError("textures are not ported yet "
-                                  "(texture.sample_bilinear)")
+    """Winner recompute from merged-table rows (26 or 40, R): the
+    winners' ``_pack_attrs`` rows, columns first. Both the sphere and the
+    triangle recompute run on every lane and ``prim_id`` selects; the
+    double ``where`` guards keep every lane NaN-free. On a textured scene
+    the triangle's albedo and normal go through ``_textured_shading`` at
+    the hit's interpolated UV. Miss lanes get t = 0 and are masked
+    downstream through ``Hit.hit``."""
     S = scene.padded_spheres
     is_tri = prim_id >= S
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
@@ -248,15 +268,31 @@ def hit_attributes_from_rows(scene: Scene, rows, o, d, prim_id, miss, t_min):
     nbz = rows[11] * w + rows[14] * u + rows[17] * v
     ntx, nty, ntz = _norm3(nbx, nby, nbz)
 
+    # --- UV / texture shading (a static no-op when untextured) -------------
+    tax, tay, taz = rows[18], rows[19], rows[20]
+    if scene.num_textures:
+        # sphere and miss lanes read tex id 0 from their zero columns: the
+        # fetch runs and is dropped by the select below
+        uv = torch.stack([rows[26] * w + rows[28] * u + rows[30] * v,
+                          rows[27] * w + rows[29] * u + rows[31] * v], dim=-1)
+        tri_albedo, tri_normal = _textured_shading(
+            scene.textures, torch.stack([tax, tay, taz], dim=-1),
+            torch.stack([ntx, nty, ntz], dim=-1), uv,
+            rows[38].to(torch.int32), rows[39].to(torch.int32),
+            rows[32:35].T, rows[35:38].T,
+            with_normal_maps=scene.num_normal_maps > 0)
+        tax, tay, taz = tri_albedo.unbind(-1)
+        ntx, nty, ntz = tri_normal.unbind(-1)
+
     # --- select -------------------------------------------------------------
     t = torch.where(miss, 0.0, torch.where(is_tri, t_tri, t_sphere))
     normal = torch.stack([torch.where(is_tri, ntx, nsx),
                           torch.where(is_tri, nty, nsy),
                           torch.where(is_tri, ntz, nsz)], dim=-1)
     point = o + d * t[:, None]
-    albedo = torch.stack([torch.where(is_tri, rows[18], rows[4]),
-                          torch.where(is_tri, rows[19], rows[5]),
-                          torch.where(is_tri, rows[20], rows[6])], dim=-1)
+    albedo = torch.stack([torch.where(is_tri, tax, rows[4]),
+                          torch.where(is_tri, tay, rows[5]),
+                          torch.where(is_tri, taz, rows[6])], dim=-1)
     emission = torch.stack([torch.where(is_tri, rows[21], rows[7]),
                             torch.where(is_tri, rows[22], rows[8]),
                             torch.where(is_tri, rows[23], rows[9])], dim=-1)
@@ -325,7 +361,7 @@ class _WinnerRows(torch.autograd.Function):
 
 def _winner_rows(scene, o, d, t_min, alive):
     """Closest hit with the winners' merged-table rows copied out by the
-    closest-hit kernel → (rows (26, R), prim_id, miss). The rows equal
+    closest-hit kernel → (rows (26|40, R), prim_id, miss). The rows equal
     ``_pack_attrs(scene)[prim_id].T`` on hit lanes and are zero on misses.
 
     When autograd needs the scene's gradient, the extraction runs as

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from .texture import prepare_texture
 
 PAD = 128  # padding unit of the primitive arrays
 
@@ -114,10 +115,17 @@ class SceneBuilder:
 
     spheres: List[Tuple] = dataclasses.field(default_factory=list)
     tris: List[Dict] = dataclasses.field(default_factory=list)
+    textures: List[np.ndarray] = dataclasses.field(default_factory=list)
+    texture_resolution: int = 512
 
     def add_texture(self, image, srgb: bool = True) -> int:
-        raise NotImplementedError(
-            "textures are not ported yet (texture.prepare_texture)")
+        """Register a texture image (resized to ``texture_resolution``
+        square, ``texture.prepare_texture``) → its id for
+        ``add_mesh(tex=..., normal_tex=...)``. Diffuse maps pass
+        ``srgb=True`` (decoded to linear), normal maps ``srgb=False``."""
+        self.textures.append(
+            prepare_texture(image, self.texture_resolution, srgb))
+        return len(self.textures) - 1
 
     def add_sphere(self, center, radius, albedo, emission=(0.0, 0.0, 0.0),
                    emission_strength=0.0, smoothness=0.0) -> "SceneBuilder":
@@ -133,8 +141,9 @@ class SceneBuilder:
                  emission_strength=0.0, smoothness=0.5, uvs=None,
                  tex: int = -1, normal_tex: int = -1) -> "SceneBuilder":
         """Append a triangle mesh, baking the ``pos`` translation into its
-        vertices. ``uvs`` are carried into the scene; texture ids need
-        ``add_texture``, which is not ported yet."""
+        vertices. ``uvs`` ((N, 2), v down) with ``tex`` / ``normal_tex``
+        ids from ``add_texture`` enable textured shading, the albedo acting
+        as a tint; without ``uvs`` the ids are dropped."""
         vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         normals = np.asarray(normals, np.float32).reshape(-1, 3)
         indices = np.asarray(indices, np.uint32).reshape(-1)
@@ -285,7 +294,10 @@ class SceneBuilder:
         texid_p[:T] = texid
         ntexid_p = np.full((TP,), -1, np.int32)
         ntexid_p[:T] = ntexid
-        tex_stack = np.zeros((1, 1, 1, 3), np.float32)
+        if self.textures:
+            tex_stack = np.stack(self.textures).astype(np.float32)
+        else:
+            tex_stack = np.zeros((1, 1, 1, 3), np.float32)
 
         return scene_from_numpy(dict(
             sphere_center=sc, sphere_radius=sr, sphere_albedo=sa,
@@ -300,7 +312,7 @@ class SceneBuilder:
             tri_tan=tan.astype(np.float32),
             tri_bitan=bitan.astype(np.float32),
             tri_tex=texid_p, tri_ntex=ntexid_p, textures=tex_stack,
-            num_spheres=S, num_tris=T, num_textures=0,
+            num_spheres=S, num_tris=T, num_textures=len(self.textures),
             num_normal_maps=int((ntexid_p >= 0).sum()),
         ), device)
 

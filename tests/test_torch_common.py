@@ -62,17 +62,52 @@ def add_lights(b):
     b.add_sphere(center, radius, (1.0, 1.0, 1.0), emission, strength, 0.0)
 
 
-def terrain(pkg, n=12, aspect=1.0, lights=False):
+def texture_images(res, seed=0):
+    """(albedo, normal map), each (res, res, 3) uint8: a seeded two-colour
+    checker of 8x8 cells times a left-to-right ramp, and the tangent-space
+    normals of a periodic heightfield's slopes encoded as (n + 1) / 2 (the
+    textures of chip_smoke.py's terrain_tex at res=512)."""
+    rng = np.random.default_rng(seed)
+    i, j = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    cell = max(res // 8, 1)
+    colours = 0.3 + 0.6 * rng.random((2, 3))
+    ramp = 0.4 + 0.6 * j / max(res - 1, 1)
+    albedo = colours[(i // cell + j // cell) % 2] * ramp[..., None]
+    # h(u, v) = a cos(2 pi (2 u + p)) + b cos(2 pi (3 v + q)), u = j / res
+    a, b, p, q = 0.05, 0.04, rng.random(), rng.random()
+    dh_du = -a * 4 * np.pi * np.sin(2 * np.pi * (2 * j / res + p))
+    dh_dv = -b * 6 * np.pi * np.sin(2 * np.pi * (3 * i / res + q))
+    nrm = np.stack([-dh_du, -dh_dv, np.ones_like(dh_du)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    to_u8 = (lambda x: np.clip(np.round(x * 255), 0, 255).astype(np.uint8))
+    return to_u8(albedo), to_u8((nrm + 1) / 2)
+
+
+TEX_REPEATS = 8   # the textured terrain's UVs span [-8, 8]: repeat wrap
+
+
+def terrain(pkg, n=12, aspect=1.0, lights=False, textured=False,
+            texture_resolution=16):
     """Terrain scene in package ``pkg`` (either package): a heightfield of
     2 (n-1)^2 triangles with glass, diffuse and glossy spheres resting on
     it, and with ``lights`` terrain_nee's two emitters (``add_lights``).
+    With ``textured`` (terrain_tex) the heightfield carries UVs u = x / 4 *
+    8, v = z / 4 * 8 and ``texture_images``' albedo (sRGB) and normal map
+    at ``texture_resolution``; the spheres and lights stay untextured.
     Returns (scene, camera)."""
     verts, normals, idx = heightfield(n, 4.0, -1.0, np.random.default_rng(0))
     # heightfield's winding faces -y and the intersection culls back faces:
     # reverse it so the terrain faces the camera above it
     idx = idx.reshape(-1, 3)[:, ::-1].reshape(-1)
-    b = pkg.SceneBuilder()
-    b.add_mesh(verts, normals, idx, albedo=(0.7, 0.5, 0.3), smoothness=0.3)
+    b = pkg.SceneBuilder(texture_resolution=texture_resolution)
+    tex = {}
+    if textured:
+        albedo_map, normal_map = texture_images(texture_resolution)
+        tex = dict(uvs=verts[:, [0, 2]] / 4.0 * TEX_REPEATS,
+                   tex=b.add_texture(albedo_map, srgb=True),
+                   normal_tex=b.add_texture(normal_map, srgb=False))
+    b.add_mesh(verts, normals, idx, albedo=(0.7, 0.5, 0.3), smoothness=0.3,
+               **tex)
     for x, albedo, smooth in ((-1.2, (0.8, 0.8, 0.8), -1.0),
                               (0.0, (0.7, 0.3, 0.3), 0.0),
                               (1.2, (0.8, 0.6, 0.2), 0.15)):
@@ -104,8 +139,9 @@ def mesh80(pkg):
 def scene_pair(name, aspect=1.0):
     """(jax scene, port scene, jax camera) for a scene name; the port's
     scene is the reference's, carried across as numpy."""
-    if name in ("terrain", "terrain_nee"):
-        js, cam = terrain(jrt, aspect=aspect, lights=name == "terrain_nee")
+    if name.startswith("terrain"):
+        js, cam = terrain(jrt, aspect=aspect, lights="nee" in name,
+                          textured="tex" in name)
     elif name == "mesh80":
         js, cam = mesh80(jrt)
     else:

@@ -210,3 +210,31 @@ def test_kernel_refuses_a_scene_whose_boxes_exceed_shared_memory(cuda_device):
     assert tch.nearest_hit_attrs.launches == before
     t, ids, rows = tbh.nearest_hit_blocked(ts, o, d)
     assert t.shape == (256,) and rows.shape == (26, 256)
+
+
+@pytest.mark.cuda
+def test_textured_kernel_matches_plain_version_on_cuda(cuda_device):
+    """The kernel's textured variant (40-column rows copied from the
+    48-column triangle planes) against its plain version on the card, on
+    the textured terrain (camera and random rays, then secondary rays) and
+    on its copy tied across supers: 0 mismatches in t, id and all 40 row
+    columns; its launches counted apart from the untextured variants'."""
+    ts, cam = terrain(trt, n=60, textured=True)
+    o, d = probe_rays(cam, 4096, seed=5)
+    alive = t_(np.random.default_rng(6).random(4096) < 0.7).to(cuda_device)
+    for label, s in (("terrain_tex", ts), ("tied", tied(ts, 512))):
+        s = s.to(cuda_device)
+        for rays in ((o, d), secondary_rays(s, 4096, 31)):
+            o_c, d_c = (t_(x).to(cuda_device) for x in rays)
+            before = (tch.nearest_hit_attrs.launches,
+                      tch.nearest_hit_attrs.tex_launches)
+            got = tch.nearest_hit_attrs(s, o_c, d_c, 1e-4, alive)
+            assert (tch.nearest_hit_attrs.launches,
+                    tch.nearest_hit_attrs.tex_launches) == (
+                        before[0], before[1] + 1)
+            ref = tch.nearest_hit_attrs_reference(s, o_c, d_c, 1e-4, alive)
+            assert got[2].shape == (40, 4096)
+            for g, w in zip(got, ref):
+                assert torch.equal(g, w), label
+            assert int(torch.isfinite(got[0]).sum()) > 500
+            assert bool((got[2][38] == 0).any())    # textured winners

@@ -29,6 +29,7 @@ def test_import_leaves_jax_out():
             "import ray_tracer_tpu_torch.ops.scatter_rows\n"
             "import ray_tracer_tpu_torch.ops.anyhit\n"
             "import ray_tracer_tpu_torch.ops.blocked_hit\n"
+            "import ray_tracer_tpu_torch.texture\n"
             "import ray_tracer_tpu_torch.lights\n"
             "import ray_tracer_tpu_torch.grad.inverse\n"
             "import ray_tracer_tpu_torch.utils.build\n"
@@ -102,11 +103,12 @@ def test_unported_entry_point_raises(fn):
         getattr(trt, fn)(scene, trt.camera_basis(cam), trt.RenderParams())
 
 
-def test_textures_raise():
-    with pytest.raises(NotImplementedError, match="textures"):
-        trt.SceneBuilder().add_texture(np.zeros((4, 4, 3), np.float32))
-    b = jrt.SceneBuilder()
-    b.add_texture(np.ones((4, 4, 3), np.float32), srgb=False)
+def test_a_reference_textured_scene_renders_on_the_cpu():
+    """A textured scene built by the reference and carried across by
+    scene_from_numpy renders through the port's entry points on the CPU,
+    plain path and kernels' path alike."""
+    b = jrt.SceneBuilder(texture_resolution=4)
+    b.add_texture(np.ones((4, 4, 3), np.float32) * 0.5, srgb=False)
     b.add_mesh([(0, 0, 2), (1, 0, 2), (0, 1, 2)], [(0, 0, -1)] * 3,
                [0, 2, 1], uvs=[(0, 0), (1, 0), (0, 1)], tex=0)
     scene = trt.scene_from_numpy({k: np.asarray(v) for k, v in
@@ -114,8 +116,15 @@ def test_textures_raise():
                                  device="cpu")
     assert scene.num_textures == 1
     o, d = torch.zeros((2, 3)), torch.tensor([[0.1, 0.1, 1.0]] * 2)
-    with pytest.raises(NotImplementedError, match="textures"):
-        tint.intersect(scene, o, d, backend="torch")
+    hit = tint.intersect(scene, o, d, backend="torch")
+    assert bool(hit.hit.all())
+    # the mesh's default tint (0.2, 0.2, 1) times the texel 127 / 255
+    assert torch.allclose(hit.albedo, torch.tensor([0.2, 0.2, 1.0])
+                          * (127 / 255))
+    cam = trt.Camera(origin=(0.3, 0.3, 0.0), look_at=(0.3, 0.3, 2.0))
+    img = trt.render(scene, cam, trt.RenderParams(width=8, height=8,
+                                                  skybox=True), frames=1)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 def test_kernel_build_is_keyed_by_source_inside_the_repo():
