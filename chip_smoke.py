@@ -6,7 +6,9 @@ points a user calls, and checks them: the forward render path (phase 3),
 the training path (phase 5), the forward render with next-event estimation
 (phase 7), all three on a large scene through the streaming kernel
 (phase 8) and on textured scenes through both closest-hit kernels'
-textured variants (phase 9). It imports nothing of JAX. Each path is
+textured variants (phase 9), and the image extras: AOVs, adaptive
+sampling, QMC, the denoiser, wavefront compaction and remat (phase 10).
+It imports nothing of JAX. Each path is
 driven with the kernels' launch counts set to 0 just before it and read
 just after.
 Phases, each printing one line (phase 1 one per kernel):
@@ -160,7 +162,43 @@ Phases, each printing one line (phase 1 one per kernel):
      by 0.8: 4 textured closest-hit, 4 scatter-add and 7 row-major
      scatter-add launches a step, one packing, the loss falls, the
      texture gradient nonzero); gradient parity at 128x72 over every
-     float leaf, the texture stack and the UVs included, all finite.
+     float leaf, the texture stack and the UVs included, all finite;
+  10. the image extras, at phase 3's settings on terrain unless named:
+     every AOV (``render_aov``) at 1920x1080 on terrain, terrain190k and
+     terrain_tex, each call launching its closest-hit kernel (the
+     streaming one on terrain190k, the textured variant on terrain_tex)
+     once and no other kernel, each timed; the AOVs through the kernels
+     against the plain path on the same tensors at 256x144 and at
+     250x142 (not a whole number of 16x8 blocks): coverage equal, depth,
+     normal and albedo within rtol 3e-4 / atol 1e-5 on hit pixels; the
+     gradient of the 256x144 depth AOV's sum over every float leaf
+     through the closest-hit kernel and the scatter-add against the plain
+     path (the phase 6 gate, tri_v0's nonzero); ``render_adaptive`` at
+     target 0 over 16 frames in chunks of 8 (16 x (bounces + 1)
+     closest-hit launches, the mean within rtol 1e-4 / atol 1e-6 of
+     ``render_progressive`` of the same frames) and, ungated, at target
+     0.05 (frames used and seconds); the 8-frame ``qmc=True`` render as in
+     phase 3 (rate beside phase 3's); ``denoise_render`` on a 1-frame
+     render without coherent scatter (finite, mean within 5%, the mean
+     |difference between rows| below 0.6 of the input's; ms); wavefront
+     compaction ("octant" and "morton"): with coherent scatter off each
+     compacted frame bit-equal to the uncompacted one on terrain,
+     terrain190k and terrain_nee (NEE + MIS); the closest-hit kernel on
+     terrain's four wavefronts, the streaming kernel on terrain190k's and
+     the any-hit kernel on terrain_nee's bounce-0 and bounce-1 shadow
+     wavefronts, each timed unsorted and in each compaction's order on
+     the same rays (the same results required), with the sort's ms (and
+     on int64 keys), with the gathers of a segment's tensors, and the
+     live share; the 8-frame
+     render's rate off, octant and morton in turns, with each coherent
+     frame's mean and fraction of pixels off against the uncompacted
+     frame (ungated); the 256x144 training gradient with each compaction
+     against without (coherent scatter off, the phase 6 gate) and s/step
+     of the 1080p training step off, octant and morton; and one 1080p
+     training gradient with ``remat=True`` against without: the forward
+     image bit-equal, every gradient within rtol 1e-3 / atol 1e-7, then
+     s/step, peak memory and the closest-hit and scatter-add launches of
+     a ``make_train_step`` step of each.
 
 Then it prints the seconds each phase took, the kernels' JSON line (the
 four kernels, the scatter-add's row-major form on the texture fetch's
@@ -1691,6 +1729,29 @@ def profile_step(label, step_fn, trainable, opt, scene, basis, target,
           f"device time)", flush=True)
 
 
+def grad_gate(label, g, ref, tol=GRAD_PARITY):
+    """Per leaf max |g - ref| <= tol x max |ref|, all finite → (largest
+    ratio, its leaf, each leaf's max |ref|)."""
+    worst, worst_leaf, scales = 0.0, None, {}
+    for k in ref:
+        if not (bool(torch.isfinite(g[k]).all())
+                and bool(torch.isfinite(ref[k]).all())):
+            raise AssertionError(f"{label}: {k}'s gradient is not finite")
+        scale = scales[k] = float(ref[k].abs().max())
+        err = float((g[k] - ref[k]).abs().max())
+        if err > tol * scale:
+            raise AssertionError(f"{label}: {k} differs by {err} (max |g| "
+                                 f"{scale})")
+        if scale and err / scale >= worst:
+            worst, worst_leaf = err / scale, k
+    return worst, worst_leaf, scales
+
+
+def float_fields(scene):
+    return [k for k in TENSOR_FIELDS
+            if getattr(scene, k).is_floating_point()]
+
+
 def grad_parity(scene, cam, params, size=(256, 144)):
     """Whole-frame MSE gradients of every float leaf at ``size`` through
     the kernels (backend "cuda") and the plain oracle ("torch") on the same
@@ -1699,8 +1760,7 @@ def grad_parity(scene, cam, params, size=(256, 144)):
     gate or a gradient is not finite."""
     basis = rt.camera_basis(cam.replace(aspect=size[0] / size[1]))
     params = params.replace(width=size[0], height=size[1])
-    fields = [k for k in TENSOR_FIELDS
-              if getattr(scene, k).is_floating_point()]
+    fields = float_fields(scene)
     with torch.no_grad():
         target = 0.5 * render_frame(scene, basis, params, 1)
     out = {}
@@ -1716,19 +1776,7 @@ def grad_parity(scene, cam, params, size=(256, 144)):
             k: torch.zeros_like(leaves[k]) if gk is None else gk
             for k, gk in zip(fields, g)})
     (img_k, g_k), (img_p, g_p) = out["cuda"], out["torch"]
-    worst, worst_leaf, scales = 0.0, None, {}
-    for k in fields:
-        if not (bool(torch.isfinite(g_k[k]).all())
-                and bool(torch.isfinite(g_p[k]).all())):
-            raise AssertionError(f"gradient parity: {k}'s gradient is not "
-                                 f"finite")
-        scale = scales[k] = float(g_p[k].abs().max())
-        err = float((g_k[k] - g_p[k]).abs().max())
-        if err > GRAD_PARITY * scale:
-            raise AssertionError(f"gradient parity: {k} differs by {err} "
-                                 f"(max |g| {scale})")
-        if scale and err / scale >= worst:
-            worst, worst_leaf = err / scale, k
+    worst, worst_leaf, scales = grad_gate("gradient parity", g_k, g_p)
     return (torch.equal(img_k, img_p), float((img_k - img_p).abs().max()),
             scales, worst, worst_leaf)
 
@@ -2171,6 +2219,495 @@ def phase9_textured(device, terrain_tex, terrain_nee_tex, large_tex,
     return counts
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the image extras
+# --------------------------------------------------------------------------
+
+AOV_RTOL, AOV_ATOL = 3e-4, 1e-5   # AOVs kernel vs plain (the reference's)
+AOV_SIZES = ((256, 144), (250, 142))   # the second does not divide into
+                                       # 16x8 blocks
+ADAPTIVE_FRAMES, ADAPTIVE_CHUNK = 16, 8
+ADAPTIVE_TARGET, ADAPTIVE_MAX = 0.05, 64   # the ungated adaptive run
+DENOISE_ITERATIONS = 3
+REMAT_RTOL, REMAT_ATOL = 1e-3, 1e-7   # tests/test_grad.py's remat bound
+COMPACTIONS = ("octant", "morton")
+EXTRA_TRIALS = 3   # timed renders / steps per variant in phase 10
+
+
+def aov_path(label, scene, cam, key):
+    """Every AOV of ``scene`` at 1920x1080 through ``render_aov``: each
+    call launches kernel ``key`` once and no other kernel; ms of each (CUDA
+    events, after a warm-up call) → text."""
+    basis = rt.camera_basis(cam)
+    params = rt.RenderParams(**PARAMS)
+    out = []
+    for aov in renderer.AOVS:
+        rt.render_aov(scene, basis, params, aov)
+        torch.cuda.synchronize()
+        reset_counts()
+        img = rt.render_aov(scene, basis, params, aov)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != launches(**{key: 1}):
+            raise AssertionError(f"{label} AOV {aov}: launches {counts}")
+        if img.shape[:2] != (H, W) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label} AOV {aov} is not finite (H, W, C)")
+        ms = cuda_ms(lambda: rt.render_aov(scene, basis, params, aov), 5)
+        out.append(f"{aov} {ms:.3f} ms")
+    return f"{label} ({key} x1 each): " + ", ".join(out)
+
+
+def aov_parity(scene, cam):
+    """Every AOV through the kernels and through the plain path on the same
+    tensors, at each of AOV_SIZES: coverage equal, depth and normal (and
+    albedo) within AOV_RTOL / AOV_ATOL on hit pixels → text."""
+    out = []
+    for w, h in AOV_SIZES:
+        basis = rt.camera_basis(cam.replace(aspect=w / h))
+        params = rt.RenderParams(**dict(PARAMS, width=w, height=h))
+        got = {b: {aov: rt.render_aov(scene, basis,
+                                      params.replace(backend=b), aov)
+                   for aov in renderer.AOVS} for b in ("cuda", "torch")}
+        if not torch.equal(got["cuda"]["hit"], got["torch"]["hit"]):
+            raise AssertionError(f"AOV parity {w}x{h}: coverage differs")
+        hit = got["torch"]["hit"][..., 0] > 0
+        worst = 0.0
+        for aov in ("depth", "normal", "albedo"):
+            a, b = got["cuda"][aov][hit], got["torch"][aov][hit]
+            excess = float(((a - b).abs()
+                            / (AOV_ATOL + AOV_RTOL * b.abs())).max())
+            if excess > 1.0:
+                raise AssertionError(f"AOV parity {w}x{h} {aov}: "
+                                     f"{excess} x the tolerance")
+            worst = max(worst, excess)
+        out.append(f"{w}x{h} {int(hit.sum())} hit pixels, worst "
+                   f"{worst:.3g} of the tolerance")
+    return "; ".join(out)
+
+
+def leaf_grads(scene, fields, fn):
+    """(fn's output detached, d(fn(scene with fresh leaves).sum()) /
+    d(each leaf of ``fields``), zero where unused)."""
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+              for k in fields}
+    out = fn(dataclasses.replace(scene, **leaves))
+    g = torch.autograd.grad(out.sum(), list(leaves.values()),
+                            allow_unused=True)
+    return out.detach(), {k: torch.zeros_like(leaves[k]) if gk is None
+                          else gk for k, gk in zip(fields, g)}
+
+
+def aov_grad_parity(scene, cam):
+    """The gradient of the 256x144 depth AOV's sum with respect to every
+    float leaf through B1 + B2 against the plain path → text."""
+    basis = rt.camera_basis(cam.replace(aspect=256 / 144))
+    params = rt.RenderParams(**dict(PARAMS, width=256, height=144))
+    grads = {b: leaf_grads(scene, float_fields(scene), lambda s, b=b:
+                           rt.render_aov(s, basis, params.replace(backend=b),
+                                         "depth"))[1]
+             for b in ("cuda", "torch")}
+    worst, leaf, scales = grad_gate("depth AOV gradient", grads["cuda"],
+                                    grads["torch"])
+    if not scales["tri_v0"]:
+        raise AssertionError("depth AOV gradient: tri_v0's is zero")
+    return (f"256x144 depth-AOV gradient over {len(scales)} float leaves, "
+            f"all finite, tri_v0 max |g| {scales['tri_v0']:.4g}, largest "
+            f"max |diff| / max |g| {worst:.3g} ({leaf}; gate {GRAD_PARITY})")
+
+
+def adaptive_path(scene, cam):
+    """``render_adaptive`` at target 0 (never met: ADAPTIVE_FRAMES frames,
+    frames x (bounces + 1) closest-hit launches, the mean within rtol 1e-4
+    of ``render_progressive`` over the same frames), then one ungated run
+    at ADAPTIVE_TARGET → text."""
+    basis = rt.camera_basis(cam)
+    params = rt.RenderParams(**PARAMS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mean, used = rt.render_adaptive(scene, basis, params, ADAPTIVE_FRAMES,
+                                    0.0, chunk=ADAPTIVE_CHUNK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    want = launches(closest_hit=ADAPTIVE_FRAMES * (BOUNCES + 1))
+    if used != ADAPTIVE_FRAMES or counts != want:
+        raise AssertionError(f"adaptive: {used} frames, launches {counts}")
+    prog = render_progressive(scene, basis, params, ADAPTIVE_FRAMES)
+    excess = float(((mean - prog).abs() / (1e-6 + 1e-4 * prog.abs())).max())
+    if excess > 1.0:
+        raise AssertionError(f"adaptive mean vs progressive: {excess} x "
+                             f"the tolerance")
+    t0 = time.perf_counter()
+    _, used_t = rt.render_adaptive(scene, basis, params, ADAPTIVE_MAX,
+                                   ADAPTIVE_TARGET, chunk=ADAPTIVE_CHUNK)
+    secs_t = time.perf_counter() - t0
+    return (f"target 0: {used} frames in {secs:.3f} s, {counts['closest_hit']}"
+            f" closest-hit launches, mean vs render_progressive worst "
+            f"{excess:.3g} of rtol 1e-4; target {ADAPTIVE_TARGET} (chunk "
+            f"{ADAPTIVE_CHUNK}, cap {ADAPTIVE_MAX}, ungated): {used_t} frames "
+            f"in {secs_t:.3f} s")
+
+
+def denoise_path(scene, cam):
+    """``denoise_render`` on a 1-frame 1080p render without coherent
+    scatter, as the reference's test renders (coherent scatter shares a
+    tile's diffuse draw, so its noise comes in 512-pixel blotches, not
+    from pixel to pixel): finite, the image mean within 5%, the
+    high-frequency energy (mean |difference between rows|) below 0.6 of
+    the input's; ms of the filter and of the whole call → text."""
+    basis = rt.camera_basis(cam)
+    params = rt.RenderParams(**dict(PARAMS, coherent_scatter=False))
+    img = render_frame(scene, basis, params, 0)
+    out = rt.denoise_render(scene, basis, params, img,
+                            iterations=DENOISE_ITERATIONS)
+    if out.shape != img.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError("denoised image is not finite (H, W, 3)")
+    m_in, m_out = float(img.mean()), float(out.mean())
+    if not abs(m_out - m_in) < 0.05 * m_in:
+        raise AssertionError(f"denoise moved the mean {m_in} -> {m_out}")
+
+    def hf(x):
+        return float((x[1:] - x[:-1]).abs().mean())
+
+    if not hf(out) < 0.6 * hf(img):
+        raise AssertionError(f"denoise: high frequencies {hf(img)} -> "
+                             f"{hf(out)}")
+    normal = rt.render_aov(scene, basis, params, "normal")
+    depth = rt.render_aov(scene, basis, params, "depth")
+    ms = cuda_ms(lambda: rt.denoise(img, normal, depth,
+                                    iterations=DENOISE_ITERATIONS), 3)
+    ms_all = cuda_ms(lambda: rt.denoise_render(
+        scene, basis, params, img, iterations=DENOISE_ITERATIONS), 3)
+    return (f"1080p, {DENOISE_ITERATIONS} iterations: mean {m_in:.5f} -> "
+            f"{m_out:.5f}, high frequencies {hf(img):.5f} -> {hf(out):.5f} "
+            f"({hf(out) / hf(img):.3f} x, gate 0.6); denoise {ms:.3f} ms, "
+            f"denoise_render (two AOVs and the filter) {ms_all:.3f} ms")
+
+
+def qmc_path(scene, cam, card, terrain_rate):
+    """The 8-frame ``qmc=True`` render through ``render_path`` (closest-hit
+    launches frames x (bounces + 1), finite, not constant) → text."""
+    img, counts, runs, _ = render_path(
+        "terrain qmc", scene, cam, rt.RenderParams(**PARAMS, qmc=True),
+        launches(closest_hit=FRAMES * (BOUNCES + 1)))
+    segs = W * H * (BOUNCES + 1) * FRAMES
+    rate = segs / float(np.median(runs))
+    return (f"{rate_text(runs, segs)}; {rate / terrain_rate:.3f} x phase "
+            f"3's {terrain_rate / 1e6:.3f} M segments/s; "
+            f"{counts['closest_hit']} closest-hit launches; image mean "
+            f"{float(img.mean()):.4f} | {card}")
+
+
+def frame_queries(scene, cam, params):
+    """One frame of the path with every hit and shadow query recorded:
+    ([(o, d, alive)] per segment as ``intersect`` gets them, [(o, d,
+    alive)] per shadow query as ``occluded`` gets them)."""
+    hits, shadows = [], []
+    real_hit, real_occ = renderer.intersect, renderer.occluded
+
+    def spy_hit(scene, o, d, t_min, backend, alive):
+        hits.append(tuple(x.detach().contiguous() for x in (o, d, alive)))
+        return real_hit(scene, o, d, t_min=t_min, backend=backend,
+                        alive=alive)
+
+    def spy_occ(scene, o, d, t_min, backend, alive):
+        shadows.append(tuple(x.detach().contiguous() for x in (o, d, alive)))
+        return real_occ(scene, o, d, t_min=t_min, backend=backend,
+                        alive=alive)
+
+    renderer.intersect, renderer.occluded = spy_hit, spy_occ
+    try:
+        render_frame(scene, rt.camera_basis(cam), params, 0)
+    finally:
+        renderer.intersect, renderer.occluded = real_hit, real_occ
+    return hits, shadows
+
+
+def sort_order(scene, mode, o, d, alive):
+    """The permutation ``renderer.trace`` applies before a segment."""
+    if mode == "octant":
+        return renderer._octant_order(d, alive)
+    return renderer._morton_order(*renderer._scene_aabb(scene), o, d, alive)
+
+
+def reorder_ms(scene, mode, o, d, alive):
+    """ms of one segment's reorder in ``trace`` without NEE: the sort
+    order, the same order sorted on int64 keys (the reference's uint32
+    key as the port holds it; the port sorts uint8 octants and int32
+    Morton keys), and the order with the gathers of the seven per-lane
+    tensors (nine with NEE)."""
+    R = o.shape[0]
+    carry = (o, d, o.clone(), d.clone(), alive,
+             torch.zeros(R, dtype=torch.int64, device=o.device),
+             torch.arange(R, device=o.device))
+    aabb = renderer._scene_aabb(scene)
+
+    def order():
+        if mode == "octant":
+            return renderer._octant_order(d, alive)
+        return renderer._morton_order(*aabb, o, d, alive)
+
+    def wide_order():
+        if mode == "octant":
+            key = torch.where(alive, renderer._octant(d), 8)
+        else:
+            key = renderer._ray_sort_key(*aabb, o, d, alive)
+        return torch.argsort(key, stable=True)
+
+    def reorder():
+        idx = order()
+        return [x.index_select(0, idx) for x in carry]
+
+    if not torch.equal(order(), wide_order()):
+        raise AssertionError(f"{mode}: the narrow keys sort differently")
+    return cuda_ms(order, 10), cuda_ms(wide_order, 10), cuda_ms(reorder, 10)
+
+
+def sorted_kernel_times(scene, cam, params, kernel):
+    """``kernel`` (the closest-hit wrapper, or "any_hit") timed on each
+    wavefront of one frame of the path, unsorted and in each compaction's
+    order (the same rays; the shadow rays of a segment in the order of its
+    path rays, as the compacted trace hands them over), with the sort's
+    ms and the live share → (text, {mode: [ms per wavefront]})."""
+    hits, shadows = frame_queries(scene, cam, params)
+    waves = []
+    if kernel == "any_hit":
+        for seg in (0, 1):
+            o, d, alive = shadows[seg]
+            waves.append((f"shadow {seg}", hits[seg], (o, d, alive)))
+    else:
+        waves = [(f"bounce {seg}", w, w) for seg, w in enumerate(hits)]
+    out, times = [], {m: [] for m in ("off",) + COMPACTIONS}
+    for label, path, (o, d, alive) in waves:
+        if kernel == "any_hit":
+            def run(o, d, alive):
+                return ah.anyhit(scene, o, d, 1e-4, ah.SHADOW_T_MAX, alive)
+        else:
+            def run(o, d, alive):
+                return kernel(scene, o, d, 1e-4, alive=alive)
+        ms = {"off": cuda_ms(lambda: run(o, d, alive), 20)}
+        ref = run(o, d, alive)
+        sort = {}
+        for mode in COMPACTIONS:
+            idx = sort_order(scene, mode, *path)
+            os_, ds, als = (x.index_select(0, idx) for x in (o, d, alive))
+            got = run(os_, ds, als)
+            same = (got if kernel == "any_hit" else got[1]).eq(
+                (ref if kernel == "any_hit" else ref[1]).index_select(0, idx))
+            if not bool(same.all()):
+                raise AssertionError(f"sorted {label} ({mode}): the kernel's "
+                                     f"result moved")
+            ms[mode] = cuda_ms(lambda: run(os_, ds, als), 20)
+            sort[mode] = reorder_ms(scene, mode, *path)
+        for m in times:
+            times[m].append(ms[m])
+        out.append(
+            f"{label} ({float(alive.float().mean()):.1%} live): "
+            f"unsorted {ms['off']:.3f}, " + ", ".join(
+                f"{m} {ms[m]:.3f} (sort {sort[m][0]:.3f}, on int64 keys "
+                f"{sort[m][1]:.3f}, with the gathers {sort[m][2]:.3f})"
+                for m in COMPACTIONS))
+    return "; ".join(out), times
+
+
+def compaction_equality(label, scene, cam, params):
+    """Coherent scatter off: each compacted 1080p frame equals the
+    uncompacted one bit for bit → text."""
+    basis = rt.camera_basis(cam)
+    params = params.replace(coherent_scatter=False)
+    off = render_frame(scene, basis, params, 0)
+    for mode in COMPACTIONS:
+        got = render_frame(scene, basis, params.replace(compaction=mode), 0)
+        if not torch.equal(got, off):
+            raise AssertionError(f"{label} {mode}: the compacted frame "
+                                 f"differs by {float((got - off).abs().max())}")
+    return f"{label} bit-equal"
+
+
+def compaction_rates(scene, cam, card):
+    """The 8-frame main-path render off and in each compaction, turn about
+    (EXTRA_TRIALS rounds after a warm-up frame each), with the coherent
+    frames' mean and fraction of pixels off against the uncompacted
+    frame, ungated → text."""
+    basis = rt.camera_basis(cam)
+    modes = ("off",) + COMPACTIONS
+    params = {m: rt.RenderParams(**PARAMS, compaction=False if m == "off"
+                                 else m) for m in modes}
+    frames = {m: render_frame(scene, basis, params[m], 0) for m in modes}
+    runs = {m: [] for m in modes}
+    for _ in range(EXTRA_TRIALS):
+        for m in modes:
+            runs[m].append(timed_render(scene, basis, params[m], FRAMES)[1])
+    segs = W * H * (BOUNCES + 1) * FRAMES
+    return "; ".join(
+        f"{m} {segs / float(np.median(runs[m])) / 1e6:.3f} M segments/s "
+        f"({[round(r, 4) for r in runs[m]]} s), frame mean "
+        f"{float(frames[m].mean()):.5f}, frac_off vs off "
+        f"{frac_off(frames[m], frames['off']):.4f}" for m in modes) + \
+        f" | {card}"
+
+
+def step_times(scene, cam, params, steps=EXTRA_TRIALS):
+    """``make_train_step`` at ``params`` from train_setup's start: one
+    warm-up and ``steps`` timed steps → (s/step median, peak GiB, launches
+    of the last step)."""
+    basis = rt.camera_basis(cam)
+    with torch.no_grad():
+        target = render_frame(scene, basis, params, 0)
+    start = dataclasses.replace(
+        scene, tri_albedo=scene.tri_albedo * ALBEDO_START,
+        sphere_albedo=scene.sphere_albedo * ALBEDO_START)
+    init_fn, step_fn = make_train_step(params, train_optimizer)
+    trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
+    secs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(1 + steps):
+        reset_counts()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        trainable, opt, _ = step_fn(trainable, opt, start, basis, target, 0)
+        ev1.record()
+        torch.cuda.synchronize()
+        if step:
+            secs.append(ev0.elapsed_time(ev1) / 1e3)
+    return (float(np.median(secs)), torch.cuda.max_memory_allocated()
+            / 2 ** 30, read_counts())
+
+
+def compaction_training(scene, cam):
+    """The 256x144 training gradient with each compaction against without
+    (coherent scatter off), then s/step of the 1080p training step off and
+    with each compaction → text."""
+    basis = rt.camera_basis(cam.replace(aspect=256 / 144))
+    params = rt.RenderParams(**dict(PARAMS, width=256, height=144,
+                                    coherent_scatter=False))
+    with torch.no_grad():
+        target = 0.5 * render_frame(scene, basis, params, 1)
+
+    def loss(p):
+        return lambda s: ((render_frame(s, basis, p, 0) - target) ** 2).mean()
+
+    fields = float_fields(scene)
+    _, ref = leaf_grads(scene, fields, loss(params))
+    out = []
+    for mode in COMPACTIONS:
+        _, g = leaf_grads(scene, fields, loss(params.replace(compaction=mode)))
+        worst, leaf, _ = grad_gate(f"compacted gradient ({mode})", g, ref)
+        out.append(f"{mode} largest max |diff| / max |g| {worst:.3g} "
+                   f"({leaf})")
+    steps = []
+    for mode in ("off",) + COMPACTIONS:
+        p = rt.RenderParams(**PARAMS, compaction=False if mode == "off"
+                            else mode)
+        s, peak, _ = step_times(scene, cam, p)
+        steps.append(f"{mode} {s:.4f} s/step ({peak:.3f} GiB)")
+        torch.cuda.empty_cache()
+    return (f"256x144 gradient vs uncompacted (coherent off, gate "
+            f"{GRAD_PARITY}): " + ", ".join(out) + "; 1080p training step: "
+            + ", ".join(steps))
+
+
+def remat_path(scene, cam, card):
+    """One 1080p training step (the MSE over DEFAULT_TRAINABLE from
+    train_setup's start) with remat against without: the forward images
+    bit-equal, the gradients within REMAT_RTOL / REMAT_ATOL, the launches
+    of each step; then s/step and peak memory of each → text."""
+    basis = rt.camera_basis(cam)
+    params = rt.RenderParams(**PARAMS)
+    with torch.no_grad():
+        target = render_frame(scene, basis, params, 0)
+    start = dataclasses.replace(
+        scene, tri_albedo=scene.tri_albedo * ALBEDO_START,
+        sphere_albedo=scene.sphere_albedo * ALBEDO_START)
+    got = {}
+    for remat in (False, True):
+        leaves = {k: getattr(start, k).detach().clone().requires_grad_(True)
+                  for k in DEFAULT_TRAINABLE}
+        img = render_frame(dataclasses.replace(start, **leaves), basis,
+                           params.replace(remat=remat), 0)
+        g = torch.autograd.grad(((img - target) ** 2).mean(),
+                                list(leaves.values()))
+        got[remat] = (img.detach(), dict(zip(leaves, g)))
+    if not torch.equal(got[False][0], got[True][0]):
+        raise AssertionError("remat changed the forward image")
+    worst = 0.0
+    for k in DEFAULT_TRAINABLE:
+        a, b = got[True][1][k], got[False][1][k]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"remat gradient of {k} is not finite")
+        excess = float(((a - b).abs() / (REMAT_ATOL + REMAT_RTOL * b.abs()))
+                       .max())
+        if excess > 1.0:
+            raise AssertionError(f"remat gradient of {k}: {excess} x the "
+                                 f"tolerance")
+        worst = max(worst, excess)
+    steps = {}
+    for remat in (False, True, True, False):
+        s, peak, counts = step_times(scene, cam, params.replace(remat=remat),
+                                     steps=1)
+        steps.setdefault(remat, []).append((s, peak, counts))
+        torch.cuda.empty_cache()
+    text = []
+    for remat in (False, True):
+        s = [x[0] for x in steps[remat]]
+        c = steps[remat][0][2]
+        text.append(f"remat={remat}: {float(np.median(s)):.4f} s/step "
+                    f"({[round(x, 4) for x in s]}), peak "
+                    f"{max(x[1] for x in steps[remat]):.3f} GiB, "
+                    f"{c['closest_hit']} closest-hit and "
+                    f"{c['scatter_rows']} scatter-add launches a step")
+    return (f"forward bit-equal, gradient worst {worst:.3g} of rtol "
+            f"{REMAT_RTOL} / atol {REMAT_ATOL}; " + "; ".join(text)
+            + f" | {card}")
+
+
+def phase10_image_extras(device, terrain, terrain_nee, terrain_tex, large,
+                         terrain_rate, card):
+    """The image extras on the card: AOVs, adaptive sampling, QMC, the
+    denoiser, wavefront compaction and remat (module docstring)."""
+    print("phase 10 AOVs 1080p: " + "; ".join(
+        aov_path(label, *scene, key) for label, scene, key in (
+            ("terrain", terrain, "closest_hit"),
+            ("terrain190k", large, "blocked_hit"),
+            ("terrain_tex", terrain_tex, "closest_hit_tex"))), flush=True)
+    print(f"phase 10 AOV parity (terrain, cuda vs torch): "
+          f"{aov_parity(*terrain)}; {aov_grad_parity(*terrain)}", flush=True)
+    print(f"phase 10 adaptive (terrain 1080p): {adaptive_path(*terrain)}",
+          flush=True)
+    print(f"phase 10 QMC (terrain 1080p, {FRAMES} frames): "
+          f"{qmc_path(*terrain, card, terrain_rate)}", flush=True)
+    print(f"phase 10 denoiser (terrain, coherent scatter off): "
+          f"{denoise_path(*terrain)}",
+          flush=True)
+    params = rt.RenderParams(**PARAMS)
+    print("phase 10 compaction equality (coherent scatter off, 1080p, "
+          f"{' and '.join(COMPACTIONS)} vs off): " + "; ".join(
+              compaction_equality(label, *scene, p) for label, scene, p in (
+                  ("terrain", terrain, params),
+                  ("terrain190k", large, params),
+                  ("terrain_nee", terrain_nee,
+                   params.replace(**NEE)))), flush=True)
+    for label, scene, kernel, p in (
+            ("B1 terrain", terrain, ch.nearest_hit_attrs, params),
+            ("B4 terrain190k", large, bh.nearest_hit_blocked, params),
+            ("B3 terrain_nee", terrain_nee, "any_hit",
+             params.replace(**NEE))):
+        text, _ = sorted_kernel_times(*scene, p, kernel)
+        print(f"phase 10 compaction kernel ms, {label} 1080p wavefronts "
+              f"(sorted vs unsorted, same rays): {text} | {card}",
+              flush=True)
+    print(f"phase 10 compaction rates (terrain 1080p, {FRAMES} frames, "
+          f"coherent scatter on): {compaction_rates(*terrain, card)}",
+          flush=True)
+    print(f"phase 10 compaction training (terrain): "
+          f"{compaction_training(*terrain)}", flush=True)
+    print(f"phase 10 remat (terrain 1080p training step): "
+          f"{remat_path(*terrain, card)}", flush=True)
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2235,11 +2772,15 @@ def main(argv):
     counts["blocked_hit"] = run("8", phase8_large_scene, device, large,
                                 large_nee, build_s, card, args.profile,
                                 args.out)
-    del large, large_nee
+    del large_nee
     torch.cuda.empty_cache()
     counts.update(run("9", phase9_textured, device, terrain_tex,
                       terrain_nee_tex, large_tex, terrain_rate, card,
                       args.profile, args.out))
+    del large_tex, terrain_nee_tex
+    torch.cuda.empty_cache()
+    run("10", phase10_image_extras, device, terrain, terrain_nee,
+        terrain_tex, large, terrain_rate, card)
     print(f"seconds per phase: {secs}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("max_abs_err", "mismatches", "ms", "plain_ms", "plain_rays",

@@ -7,8 +7,12 @@ imports torch and numpy, never jax. Ported: the forward render path
 progressive renderer), next-event estimation with MIS and Russian
 roulette (``lights``, ``RenderParams.nee``, ``mis``, ``rr_start``) and the
 training path (``grad``: the image loss, its gradient and the optimizer
-step), on scenes of any size. Four hand-written CUDA kernels, built with
-nvcc at first use, carry them: the closest-hit search
+step), on scenes of any size, textures, and the image extras: primary-ray
+AOVs (``render_aov``), adaptive sampling (``render_adaptive``), the
+à-trous denoiser (``denoise``, ``denoise_render``), R2 anti-aliasing
+(``RenderParams.qmc``), wavefront compaction (``compaction``) and
+per-segment rematerialization (``remat``). Four hand-written CUDA
+kernels, built with nvcc at first use, carry them: the closest-hit search
 (``ops/closest_hit.py``, ``csrc/closest_hit.cu``), its backward, the
 scatter-add of the winner rows' cotangents (``ops/scatter_rows.py``,
 ``csrc/scatter_rows.cu``), the any-hit search of NEE's shadow rays
@@ -32,6 +36,7 @@ plain PyTorch oracle for a scene on the CPU.
 
 from . import grad, io, lights
 from .camera import Camera, CameraBasis, camera_basis, camera_rays
+from .denoise import denoise, denoise_render
 from .ops.intersect import occluded
 from .renderer import (Renderer, accumulate, render, render_adaptive,
                        render_aov, render_frame, render_pixels,
@@ -56,6 +61,7 @@ __all__ = [
     "Camera", "CameraBasis", "camera_basis", "camera_rays",
     "Renderer", "accumulate", "render", "render_adaptive", "render_aov",
     "render_frame", "render_pixels", "render_progressive", "trace",
+    "denoise",
     "Scene", "SceneBuilder", "builtin_scene", "scene_balls",
     "scene_from_numpy", "scene_metal", "scene_random_balls", "scene_room",
     "BUILTIN_SCENES", "SCENE_IDS", "RenderParams", "grad", "io", "lights",

@@ -93,7 +93,8 @@ def camera_basis(cam: Camera) -> CameraBasis:
         lens_radius=torch.tensor(cam.aperture / 2.0, dtype=torch.float32))
 
 
-def camera_rays(basis: CameraBasis, pix_x, pix_y, size_wh, state):
+def camera_rays(basis: CameraBasis, pix_x, pix_y, size_wh, state,
+                jitter=None):
     """One primary ray per lane.
 
     Args:
@@ -101,14 +102,21 @@ def camera_rays(basis: CameraBasis, pix_x, pix_y, size_wh, state):
       pix_x, pix_y: integer pixel coordinates (N,); y=0 is the bottom row.
       size_wh: (width, height) Python ints.
       state: (N,) RNG state (sampling module convention).
+      jitter: optional (ax, ay) anti-aliasing offsets in [0, 1] from the
+        caller (the QMC path, ``renderer.render_pixels``); they replace
+        the two AA draws, and the state does not advance for them.
 
     Returns:
       (state, origins (N, 3), dirs (N, 3)); dirs are unnormalized. The state
-      advances by the AA jitter (2 draws) and the lens sample (2 draws).
+      advances by the AA jitter (2 draws, unless ``jitter`` is given) and
+      the lens sample (2 draws).
     """
     w, h = size_wh
-    state, ax = sampling.uniform(state)
-    state, ay = sampling.uniform(state)
+    if jitter is None:
+        state, ax = sampling.uniform(state)
+        state, ay = sampling.uniform(state)
+    else:
+        ax, ay = jitter
     px = (pix_x.to(torch.float32) + ax) / float(w)
     py = (pix_y.to(torch.float32) + ay) / float(h)
 

@@ -1,13 +1,16 @@
 """Wavefront path tracer: bounce-synchronous trace loop + progressive frames.
 
-Port of ``ray_tracer_tpu.renderer`` (without wavefront compaction). All
-rays advance one bounce per step of a Python loop over ``bounces + 1``
-segments: one closest-hit query, then masked elementwise shading. A ray
-that misses adds the sky once, on the segment it dies, and stays dead.
+Port of ``ray_tracer_tpu.renderer``. All rays advance one bounce per step
+of a Python loop over ``bounces + 1`` segments: one closest-hit query,
+then masked elementwise shading. A ray that misses adds the sky once, on
+the segment it dies, and stays dead.
 With ``nee`` a hit also samples a light and casts one shadow ray
 (``occluded``, the any-hit kernel on the card), weighted against BSDF
 sampling by the balance heuristic (``mis``) or suppressing the next
-segment's BSDF-found emission; ``rr_start`` adds Russian roulette.
+segment's BSDF-found emission; ``rr_start`` adds Russian roulette. On
+the kernels' backend ``compaction`` sorts each segment's rays first.
+Besides frames: primary-ray AOVs (``render_aov``) and variance-guided
+adaptive sampling (``render_adaptive``).
 
 Radiance recurrence per segment:
     incoming   += emission * strength * throughput    (on hit)
@@ -29,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import materials, sampling
 from .camera import Camera, CameraBasis, camera_basis, camera_rays
@@ -44,15 +48,75 @@ def resolved_backend(params: RenderParams, scene: Scene) -> str:
     return resolve_backend(params.backend, scene.device)
 
 
-def check_supported(params: RenderParams) -> None:
-    """Raise NotImplementedError, naming the feature, for every switched-on
-    knob whose feature is not ported yet."""
-    for name, on in (("compaction", params.compaction),
-                     ("qmc", params.qmc),
-                     ("remat", params.remat)):
-        if on:
-            raise NotImplementedError(f"RenderParams.{name} is not ported "
-                                      f"yet")
+def compaction_mode(params: RenderParams, backend: str):
+    """The wavefront compaction ``trace`` applies: "morton", "octant" or
+    None. As in the reference it runs on the kernels' backend only
+    ("cuda", the reference's "pallas"); the "torch" backend ignores the
+    knob, as the reference's jnp backend does. True means "morton"."""
+    mode = "morton" if params.compaction is True else params.compaction
+    return mode if mode and backend == "cuda" else None
+
+
+# ---------------------------------------------------------------------------
+# Wavefront compaction: sort keys. Each segment reorders its rays so the
+# kernels' warps get coherent rays and dead lanes collect at the end.
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _scene_aabb(scene: Scene):
+    """(lo, hi) (3,) over the valid spheres and triangles."""
+    inf = float("inf")
+    sv = (scene.sphere_valid > 0.5)[:, None]
+    tv = (scene.tri_valid > 0.5)[:, None]
+    r = scene.sphere_radius[:, None]
+    verts = (scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    lo = torch.cat([torch.where(sv, scene.sphere_center - r, inf)]
+                   + [torch.where(tv, v, inf) for v in verts]).amin(0)
+    hi = torch.cat([torch.where(sv, scene.sphere_center + r, -inf)]
+                   + [torch.where(tv, v, -inf) for v in verts]).amax(0)
+    return lo, hi
+
+
+def _spread8(x):
+    """Interleave the low 8 bits of x with two zero bits."""
+    x = (x | (x << 8)) & 0x00F00F
+    x = (x | (x << 4)) & 0x0C30C3
+    return (x | (x << 2)) & 0x249249
+
+
+def _octant(d):
+    """Direction octant in [0, 8): bit k set where d[:, k] > 0."""
+    return ((d[:, 0] > 0).long() | ((d[:, 1] > 0).long() << 1)
+            | ((d[:, 2] > 0).long() << 2))
+
+
+def _octant_order(d, alive):
+    """Permutation grouping live rays into their 8 direction octants, dead
+    rays last, each bucket in its lanes' order: the stable argsort of the
+    bucket (as uint8, the narrowest key a radix sort takes), the
+    permutation of the reference's counting sort."""
+    return torch.argsort(torch.where(alive, _octant(d), 8).to(torch.uint8),
+                         stable=True)
+
+
+def _ray_sort_key(lo, hi, o, d, alive):
+    """Sort key (int64 holding the reference's uint32): live rays by the
+    24-bit Morton cell of the origin in the scene's box, then direction
+    octant; dead rays 0xFFFFFFFF, after every live one."""
+    ext = maximum(hi - lo, 1e-12)
+    q = clip((o - lo) / ext * 255.0, 0.0, 255.0).to(torch.int64)
+    morton = ((_spread8(q[:, 0]) << 2) | (_spread8(q[:, 1]) << 1)
+              | _spread8(q[:, 2]))
+    return torch.where(alive, (morton << 3) | _octant(d), 0xFFFFFFFF)
+
+
+def _morton_order(lo, hi, o, d, alive):
+    """The stable argsort of ``_ray_sort_key``, the reference's "morton"
+    permutation, sorted on int32 keys: live keys fit in 27 bits, so the
+    dead lanes' key clipped to 2^31 - 1 still sorts after every live one,
+    and the radix sort reads half the bits."""
+    key = _ray_sort_key(lo, hi, o, d, alive).clamp(max=2 ** 31 - 1)
+    return torch.argsort(key.to(torch.int32), stable=True)
 
 
 def _mis_bsdf_weight(table, h, o, d, emission_ok, prev_pdf):
@@ -131,21 +195,38 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
     segment. The last segment makes no NEE attempt (its direct term would
     stand in for a segment the depth budget never traces), so it casts no
     shadow rays: the any-hit query runs once per segment but the last.
+
+    With compaction (``compaction_mode``) each segment first permutes every
+    per-lane tensor, the RNG state and the lanes' original slots included,
+    by the sort order of its rays; radiance and state go back to their
+    slots at the end. Each lane's result is the same in any order, but the
+    coherent-scatter tiles share draws across the permuted lanes. With
+    ``remat`` each segment runs under ``torch.utils.checkpoint``: the
+    backward recomputes it from its inputs (the RNG is carried in as a
+    tensor, so the recompute draws the same samples).
     """
-    check_supported(params)
     backend = resolved_backend(params, scene)
+    compaction = compaction_mode(params, backend)
     if params.coherent_scatter:
         share = params.coherent_tile or materials.DEFAULT_SHARE_TILE
     else:
         share = 0
-    throughput = torch.ones_like(o)
-    incoming = torch.zeros_like(o)
-    alive = torch.ones(o.shape[:1], dtype=torch.bool, device=o.device)
-    if params.nee:
-        table = build_light_table(scene)
-        emission_ok = torch.ones_like(alive)   # NEE double-count guard
-        prev_pdf = torch.zeros_like(o[:, 0])   # BSDF pdf, for MIS
-    for seg in range(params.bounces + 1):
+    table = build_light_table(scene) if params.nee else None
+    aabb = _scene_aabb(scene) if compaction == "morton" else None
+
+    def bounce(seg, o, d, throughput, incoming, alive, emission_ok,
+               prev_pdf, state, slot):
+        if compaction:
+            with torch.no_grad():
+                if compaction == "morton":
+                    order = _morton_order(*aabb, o, d, alive)
+                else:
+                    order = _octant_order(d, alive)
+            (o, d, throughput, incoming, alive, emission_ok, prev_pdf,
+             state, slot) = (
+                None if x is None else x.index_select(0, order)
+                for x in (o, d, throughput, incoming, alive, emission_ok,
+                          prev_pdf, state, slot))
         h = intersect(scene, o, d, t_min=params.t_min, backend=backend,
                       alive=alive)
         active_hit = (alive & h.hit)[:, None]
@@ -205,21 +286,57 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
                 throughput = throughput * torch.where(
                     kill, 1.0, 1.0 / p_surv)[:, None]
                 alive = alive & ~kill
+        return (o, d, throughput, incoming, alive, emission_ok, prev_pdf,
+                state, slot)
+
+    alive = torch.ones(o.shape[:1], dtype=torch.bool, device=o.device)
+    carry = (o, d, torch.ones_like(o), torch.zeros_like(o), alive,
+             # NEE double-count guard and the BSDF pdf MIS weighs with
+             torch.ones_like(alive) if params.nee else None,
+             torch.zeros_like(o[:, 0]) if params.nee else None,
+             state,
+             # each lane's original slot, where compaction permutes lanes
+             torch.arange(o.shape[0], device=o.device) if compaction
+             else None)
+    checkpointed = params.remat and torch.is_grad_enabled()
+    for seg in range(params.bounces + 1):
+        if checkpointed:
+            carry = checkpoint(bounce, seg, *carry, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            carry = bounce(seg, *carry)
+    incoming, state, slot = carry[3], carry[7], carry[8]
+    if compaction:
+        # radiance and RNG state back to the lanes' original slots
+        incoming = torch.zeros_like(incoming).index_copy(0, slot, incoming)
+        state = torch.zeros_like(state).index_copy(0, slot, state)
     return state, incoming
 
 
 def render_pixels(scene: Scene, basis: CameraBasis, params: RenderParams,
                   frame_index: int, pixel_ids):
-    """Render flat pixel ids (y * W + x, y=0 bottom row) → (N, 3)."""
-    check_supported(params)
+    """Render flat pixel ids (y * W + x, y=0 bottom row) → (N, 3).
+
+    With ``qmc`` the AA jitter of sample s of frame f is point
+    n = |f| rpp + s (mod 2^32) of the R2 sequence, rotated per pixel by
+    two stateless hashes of its id: low-discrepancy across frames, and
+    the ray RNG stream does not advance for it."""
     W, H = params.width, params.height
     x = pixel_ids % W
     y = pixel_ids // W
-    state = sampling.seed_state(pixel_ids, abs(int(frame_index)))
+    frame = abs(int(frame_index))
+    state = sampling.seed_state(pixel_ids, frame)
+    if params.qmc:
+        rot_x = sampling.hash_u32(pixel_ids)
+        rot_y = sampling.hash_u32(pixel_ids ^ 0x9E3779B9)
     total = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
                         device=pixel_ids.device)
-    for _ in range(params.rays_per_pixel):
-        state, o, d = camera_rays(basis, x, y, (W, H), state)
+    for s in range(params.rays_per_pixel):
+        jitter = None
+        if params.qmc:
+            jitter = sampling.r2_point(frame * params.rays_per_pixel + s,
+                                       rot_x, rot_y)
+        state, o, d = camera_rays(basis, x, y, (W, H), state, jitter=jitter)
         state, rad = trace(scene, o, d, state, params)
         if params.clamp > 0.0:
             rad = minimum(rad, params.clamp)  # firefly suppression
@@ -249,11 +366,17 @@ def _blocked_ids(W: int, H: int, device: torch.device):
             torch.from_numpy(inverse).to(device))
 
 
-def _unblock_image(img_flat, W: int, H: int, bw: int = 16, bh: int = 8):
-    """Inverse of the blocked pixel order as reshape + permute (needs
-    W % bw == H % bh == 0; render_frame gathers otherwise)."""
-    return (img_flat.reshape(H // bh, W // bw, bh, bw, 3)
-            .permute(0, 2, 1, 3, 4).reshape(H * W, 3))
+AOVS = ("depth", "normal", "albedo", "hit")
+
+
+def _unblock(img_flat, inverse, W: int, H: int):
+    """Blocked pixel order → raster order, (H*W, C): the reshape where the
+    16x8 blocks tile the frame, the inverse gather otherwise."""
+    if W % 16 == 0 and H % 8 == 0:
+        C = img_flat.shape[-1]
+        return (img_flat.reshape(H // 8, W // 16, 8, 16, C)
+                .permute(0, 2, 1, 3, 4).reshape(H * W, C))
+    return img_flat[inverse]
 
 
 def render_frame(scene: Scene, basis: CameraBasis, params: RenderParams,
@@ -265,7 +388,6 @@ def render_frame(scene: Scene, basis: CameraBasis, params: RenderParams,
     packages put the same pixels in the same share tiles). With
     ``params.chunk_pixels > 0`` the frame is traced in sequential pixel
     chunks."""
-    check_supported(params)
     device = scene.device
     basis = basis.to(device)
     W, H = params.width, params.height
@@ -288,19 +410,55 @@ def render_frame(scene: Scene, basis: CameraBasis, params: RenderParams,
     else:
         img = render_pixels(scene, basis, params, frame_index, pixel_ids)
     if blocked:
-        if W % 16 == 0 and H % 8 == 0:
-            img = _unblock_image(img, W, H)
-        else:
-            img = img[inverse]  # back to raster order
+        img = _unblock(img, inverse, W, H)   # back to raster order
     return img.reshape(H, W, 3)
 
 
-def render_aov(*args, **kwargs):
-    raise NotImplementedError("render_aov is not ported yet")
+def render_aov(scene: Scene, basis: CameraBasis, params: RenderParams,
+               aov: str = "depth"):
+    """Primary-ray AOV (arbitrary output variable) image → (H, W, C).
 
+    Rays go through pixel centres, without AA jitter and without the lens
+    (AOVs are aliased and free of depth of field by convention), one
+    closest-hit query each; the image is differentiable in the scene as a
+    frame is (through the kernels' backward on the "cuda" backend).
 
-def render_adaptive(*args, **kwargs):
-    raise NotImplementedError("render_adaptive is not ported yet")
+    aov: "depth"  (H, W, 1) hit distance in units of |d| (0 on a miss),
+         "normal" (H, W, 3) outward unit shading normal (0 on a miss),
+         "albedo" (H, W, 3) surface albedo, textured where the scene is
+                  (0 on a miss),
+         "hit"    (H, W, 1) coverage, 1 on a hit, 0 on a miss.
+    Pixels go out in the blocked 16x8 order when the kernels run, as in
+    ``render_frame``."""
+    if aov not in AOVS:
+        raise ValueError(f"unknown aov {aov!r}")
+    device = scene.device
+    basis = basis.to(device)
+    W, H = params.width, params.height
+    n = H * W
+    blocked = resolved_backend(params, scene) == "cuda"
+    if blocked:
+        pixel_ids, inverse = _blocked_ids(W, H, device)
+    else:
+        pixel_ids = torch.arange(n, dtype=torch.int64, device=device)
+    px = ((pixel_ids % W).to(torch.float32) + 0.5) / float(W)
+    py = ((pixel_ids // W).to(torch.float32) + 0.5) / float(H)
+    d = (basis.lower_left + px[:, None] * basis.horizontal
+         + py[:, None] * basis.vertical - basis.origin)
+    o = basis.origin.expand_as(d).contiguous()
+    h = intersect(scene, o, d, t_min=params.t_min, backend=params.backend,
+                  alive=torch.ones(n, dtype=torch.bool, device=device))
+    if aov == "depth":
+        img = torch.where(h.hit, h.t, 0.0)[:, None]
+    elif aov == "normal":
+        img = torch.where(h.hit[:, None], h.normal, 0.0)
+    elif aov == "albedo":
+        img = torch.where(h.hit[:, None], h.albedo, 0.0)
+    else:
+        img = h.hit.to(torch.float32)[:, None]
+    if blocked:
+        img = _unblock(img, inverse, W, H)
+    return img.reshape(H, W, -1)
 
 
 def accumulate(prev, frame_img, frame_index: int):
@@ -324,6 +482,59 @@ def render_progressive(scene: Scene, basis: CameraBasis, params: RenderParams,
         f = start_frame + k
         img = accumulate(img, render_frame(scene, basis, params, f), f)
     return img
+
+
+def _render_moments_chunk(scene: Scene, basis: CameraBasis,
+                          params: RenderParams, frames: int,
+                          start_frame: int, sums):
+    """Per-pixel first and second moments (sum of img, sum of img * img)
+    over ``frames`` frames from ``start_frame``, added to ``sums``."""
+    s, s2 = sums
+    for k in range(frames):
+        img = render_frame(scene, basis, params, start_frame + k)
+        s, s2 = s + img, s2 + img * img
+    return s, s2
+
+
+def _adaptive_stats(s, s2, n: int, target_rel_std: float):
+    """(mean image, fraction of pixels not yet converged (0-d tensor)): a
+    pixel has converged where the standard error of its mean, relative to
+    its brightest channel (floored at 5e-2, so dark pixels converge by the
+    absolute floor), is at most ``target_rel_std`` in every channel."""
+    nf = float(n)
+    mean = s / nf
+    var = maximum(s2 / nf - mean * mean, 0.0)
+    rel = torch.sqrt(var / max(nf - 1.0, 1.0)) / maximum(
+        mean.amax(-1, keepdim=True), 5e-2)
+    return mean, (rel.amax(-1) > target_rel_std).to(torch.float32).mean()
+
+
+@torch.no_grad()
+def render_adaptive(scene: Scene, basis: CameraBasis, params: RenderParams,
+                    max_frames: int, target_rel_std: float = 0.02,
+                    chunk: int = 16, converged_fraction: float = 0.99):
+    """Variance-guided progressive rendering: frames in chunks of
+    ``chunk``, per-pixel moments kept on the scene's device, stopping once
+    at least ``converged_fraction`` of the pixels have a relative standard
+    error of the mean below ``target_rel_std`` (``_adaptive_stats``), or
+    at ``max_frames``. One scalar leaves the device per chunk. Not
+    differentiable (the stopping rule reads a value), as in the
+    reference. The reference's ``resilient`` retries of a TPU relay are
+    not ported (ROADMAP.md D4).
+
+    Returns (mean image (H, W, 3), frames rendered)."""
+    H, W = params.height, params.width
+    s = torch.zeros((H, W, 3), dtype=torch.float32, device=scene.device)
+    s2 = torch.zeros_like(s)
+    n = 0
+    while n < max_frames:
+        k = min(chunk, max_frames - n)
+        s, s2 = _render_moments_chunk(scene, basis, params, k, n, (s, s2))
+        n += k
+        mean, frac_noisy = _adaptive_stats(s, s2, n, target_rel_std)
+        if float(frac_noisy) <= 1.0 - converged_fraction:
+            break
+    return mean, n
 
 
 class Renderer:

@@ -9,8 +9,9 @@ State representation: PyTorch on the CPU has no ``+``, ``>>``, ``<<`` or
 ``%`` on uint32, so the state is an int64 tensor holding a value in
 [0, 2^32), masked back to 32 bits after every ``*`` and ``+``. No product
 leaves int64: state < 2^32 and the LCG and mix multipliers are < 2^30,
-so every product is < 2^62. The outputs are bit-identical to the
-reference's uint32 arithmetic.
+so every product is < 2^62. The R2 multipliers are above 2^31, so
+``r2_point`` multiplies by their 16-bit halves (each product < 2^48).
+The outputs are bit-identical to the reference's uint32 arithmetic.
 """
 
 from __future__ import annotations
@@ -32,6 +33,30 @@ def seed_state(pixel_index: torch.Tensor, frame_index: int) -> torch.Tensor:
     frame (both taken mod 2^32)."""
     frame = int(frame_index) & MASK32
     return (pixel_index.to(torch.int64) + frame * _FRAME_STRIDE) & MASK32
+
+
+# R2 low-discrepancy sequence (the plastic-number generalization of the
+# golden ratio to 2D) in 0.32 fixed point: the n-th point is
+# (n G1 mod 2^32, n G2 mod 2^32), exact modular arithmetic
+R2_G1_U32 = 3242174889   # round(0.7548776662466927 * 2^32)
+R2_G2_U32 = 2447445414   # round(0.5698402909980532 * 2^32)
+_INV_2_32 = float(np.float32(1.0 / 4294967296.0))
+
+
+def _mul_u32(n: torch.Tensor, g: int) -> torch.Tensor:
+    """n * g mod 2^32 for n in [0, 2^32) and a 32-bit constant g, with no
+    product past 2^48: n * g = n * g_hi * 2^16 + n * g_lo."""
+    g_hi, g_lo = g >> 16, g & 0xFFFF
+    return ((((n * g_hi) & 0xFFFF) << 16) + n * g_lo) & MASK32
+
+
+def r2_point(n, rot_x: torch.Tensor, rot_y: torch.Tensor):
+    """The n-th R2 point with a per-lane Cranley-Patterson rotation (both
+    32-bit) → (ax, ay) float32 in [0, 1]."""
+    n = torch.as_tensor(n, dtype=torch.int64, device=rot_x.device) & MASK32
+    ax = ((_mul_u32(n, R2_G1_U32) + rot_x) & MASK32).to(torch.float32)
+    ay = ((_mul_u32(n, R2_G2_U32) + rot_y) & MASK32).to(torch.float32)
+    return ax * _INV_2_32, ay * _INV_2_32
 
 
 def next_u32(state: torch.Tensor):

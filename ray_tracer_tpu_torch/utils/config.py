@@ -12,10 +12,9 @@ port's own values:
     (``ops/closest_hit.py``) and, with ``nee``, the any-hit kernel
     (``ops/anyhit.py``); raises on CPU tensors.
 
-Knobs whose feature is not ported yet (``compaction``, ``qmc``,
-``remat``) keep their fields so a configuration round-trips, but the
-renderer raises ``NotImplementedError`` when one is switched on (see
-``renderer.check_supported``).
+``compaction`` takes effect on the ``"cuda"`` backend only, as the
+reference's takes effect on its kernels' backend only
+(``renderer.compaction_mode``).
 """
 
 from __future__ import annotations
@@ -46,7 +45,8 @@ class RenderParams:
     # trace the frame in chunks of this many pixels (0 = whole frame);
     # bounds the rays x primitives working set of the "torch" backend
     chunk_pixels: int = 0
-    # not ported: wavefront compaction (False | True | "octant" | "morton")
+    # wavefront compaction before each segment's hit query, on the "cuda"
+    # backend only: False | True (= "morton") | "octant" | "morton"
     compaction: object = False
     # next-event estimation: one light sample and shadow ray per hit;
     # lanes at smoothness >= nee_smoothness_cutoff keep BSDF sampling only
@@ -55,11 +55,11 @@ class RenderParams:
     # with nee: weight NEE and BSDF-found emission by the balance
     # heuristic (False: NEE lanes suppress the next segment's emission)
     mis: bool = True
-    # not ported: low-discrepancy (R2) anti-aliasing
+    # low-discrepancy (R2) anti-aliasing jitter across frames
     qmc: bool = False
     # Russian roulette from this segment index (0 = off)
     rr_start: int = 0
-    # not ported: backward-pass rematerialization
+    # backward-pass rematerialization: each segment recomputed
     remat: bool = False
     # firefly clamp on each sample's radiance (0 = off)
     clamp: float = 0.0

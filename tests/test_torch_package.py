@@ -1,5 +1,5 @@
-"""The port's package boundary: no JAX, explicit backends, and unported
-features that raise instead of doing something else."""
+"""The port's package boundary: no JAX, explicit backends, entry points
+on the card, and the kernels' build."""
 
 import dataclasses
 import os
@@ -85,22 +85,6 @@ def test_cuda_backend_on_cpu_tensors_raises():
     d = torch.ones((4, 3))
     with pytest.raises(ValueError, match="cuda"):
         tint.intersect(scene, o, d, backend="cuda")
-
-
-@pytest.mark.parametrize("feature,value", [
-    ("compaction", "octant"), ("qmc", True), ("remat", True)])
-def test_unported_feature_raises(feature, value):
-    scene, cam = trt.builtin_scene("metal", device="cpu")
-    params = trt.RenderParams(width=16, height=16, **{feature: value})
-    with pytest.raises(NotImplementedError, match=feature):
-        trt.render(scene, cam, params)
-
-
-@pytest.mark.parametrize("fn", ["render_aov", "render_adaptive"])
-def test_unported_entry_point_raises(fn):
-    scene, cam = trt.builtin_scene("metal", device="cpu")
-    with pytest.raises(NotImplementedError, match=fn):
-        getattr(trt, fn)(scene, trt.camera_basis(cam), trt.RenderParams())
 
 
 def test_a_reference_textured_scene_renders_on_the_cpu():
