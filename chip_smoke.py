@@ -7,8 +7,10 @@ the training path (phase 5), the forward render with next-event estimation
 (phase 7), all three on a large scene through the streaming kernel
 (phase 8) and on textured scenes through both closest-hit kernels'
 textured variants (phase 9), and the image extras: AOVs, adaptive
-sampling, QMC, the denoiser, wavefront compaction and remat (phase 10).
-It imports nothing of JAX. Each path is
+sampling, QMC, the denoiser, wavefront compaction and remat (phase 10),
+and mesh recovery from loaded models: the OBJ / glTF / GLB loaders, the
+edge-sampled boundary gradients and the per-vertex recovery loop
+(phase 11). It imports nothing of JAX. Each path is
 driven with the kernels' launch counts set to 0 just before it and read
 just after.
 Phases, each printing one line (phase 1 one per kernel):
@@ -199,6 +201,40 @@ Phases, each printing one line (phase 1 one per kernel):
      image bit-equal, every gradient within rtol 1e-3 / atol 1e-7, then
      s/step, peak memory and the closest-hit and scatter-add launches of
      a ``make_train_step`` step of each.
+  11. mesh recovery and model loading (after 10), model files written by
+     the script into build/chip_smoke_models/: the terrain190k heightfield
+     as an OBJ, a closed torus of the teapot's scale (R 1, r 0.4, 112 x 70
+     quads: 7,840 vertices, 15,680 triangles) as an OBJ with an MTL whose
+     map_Kd is a PNG (written by the port's codec) and as a GLB with the
+     PNG embedded. Loading: the OBJs through the native parser (which
+     must build here) and the Python one, equal, seconds of each; the
+     loaded OBJ (190,962 triangles) and the textured GLB rendered at
+     phase 3's settings (32 streaming launches, 32 textured closest-hit
+     launches, no other kernel) and held to the plain path at 256x144 (the
+     phase 4 gate). Edge gradients: ``gradients_from_draws`` through the
+     kernels against the plain path on the same draws (the per-leaf
+     phase 6 gate) on the torus at 128x128 (a 10%-perturbed torus against
+     the truth, its MSE cotangent, 4,096 edge samples, topology on) and on
+     terrain at 1080p (albedos x 0.8, 4,096 edge and 4,096 sphere samples),
+     2 side traces x (bounces + 1) closest-hit launches a sample family,
+     the draws', the traces' and the rest's ms; build_topology's seconds
+     on the torus and on terrain190k; 3 timed 1080p terrain training
+     steps with ``edge_samples=4096`` and the topology (24 closest-hit and
+     4 scatter-add launches and one packing a step, gradients finite),
+     s/step beside phase 5's. Recovery: ``run_vertex_recovery`` at the
+     reference CPU test's configuration (the octasphere at subdivision 2,
+     64x64, 4 views, 300 steps, 1,024 edge samples, lambda 2, frame
+     cycle 2, start RMS 10% of the extent), held to that test's bars
+     (offset RMS < 0.02 of the extent, albedo error < 0.03, last loss <
+     0.1 x the first); then BASELINE config 5 (its 600 steps cut to 400
+     to keep the phase near 90 s; 128x128, 6 views, 4,096 edge samples,
+     lambda 50, smooth weight 0.08) on the torus loaded from its OBJ,
+     its RMS and albedo error printed beside the reference's bars
+     (< 0.01, < 0.05; ungated); both with their launches held to what the
+     loop makes (per step 2 + 1 + 4 closest-hit and 2 + 2 scatter-add
+     launches; the targets and coverage masks before the loop) and one
+     packing a step, finite and the last cycle of views' loss below the
+     first's; s/step, peak memory, packings and launches a step printed.
 
 Then it prints the seconds each phase took, the kernels' JSON line (the
 four kernels, the scatter-add's row-major form on the texture fetch's
@@ -223,8 +259,10 @@ Usage: python3 chip_smoke.py [--profile] [--out DIR]
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -236,6 +274,9 @@ import torch
 import ray_tracer_tpu_torch as rt
 from ray_tracer_tpu_torch import lights, renderer, sampling
 from ray_tracer_tpu_torch.grad import DEFAULT_TRAINABLE, make_train_step
+from ray_tracer_tpu_torch.grad import edges, topology
+from ray_tracer_tpu_torch.io import loaders
+from ray_tracer_tpu_torch.io.png import encode_png
 from ray_tracer_tpu_torch.ops import anyhit as ah
 from ray_tracer_tpu_torch.ops import blocked_hit as bh
 from ray_tracer_tpu_torch.ops import closest_hit as ch
@@ -245,7 +286,8 @@ from ray_tracer_tpu_torch.renderer import (_blocked_ids, render_frame,
                                            render_progressive,
                                            resolved_backend)
 from ray_tracer_tpu_torch.scene import TENSOR_FIELDS
-from ray_tracer_tpu_torch.utils import build
+from ray_tracer_tpu_torch.tools import invert_vertices
+from ray_tracer_tpu_torch.utils import build, native
 
 W, H, FRAMES, BOUNCES = 1920, 1080, 8, 3
 TRIALS = 5  # timed 8-frame renders of the main path
@@ -1603,7 +1645,7 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
     optimizer moved the scene);
     gradients finite, tri_v0's (textures', with ``textured``) and
     tri_albedo's not all zero, the last loss below the first → (line, the
-    launches summed over all steps)."""
+    launches summed over all steps, the median s/step)."""
     step_fn, (trainable, opt, start, basis, target, _) = train_setup(
         scene, cam, textured)
     per_step = launches(**{hit: BOUNCES + 1, "scatter_rows": BOUNCES + 1},
@@ -1666,14 +1708,14 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
     if profile:
         profile_step(label, step_fn, trainable, opt, start, basis, target,
                      med, hit, out_dir)
-    return line, totals
+    return line, totals, med
 
 
 def phase5_training(device, terrain, card, profile, out_dir):
-    line, totals = train_path("terrain", *terrain, card, TRAIN_STEPS,
-                              "closest_hit", profile, out_dir)
+    line, totals, med = train_path("terrain", *terrain, card, TRAIN_STEPS,
+                                   "closest_hit", profile, out_dir)
     print(f"phase 5 training path: {line}", flush=True)
-    return totals["scatter_rows"]
+    return totals["scatter_rows"], med
 
 
 def train_optimizer(leaves, fields=DEFAULT_TRAINABLE):
@@ -2027,8 +2069,8 @@ def phase8_large_scene(device, large, large_nee, build_s, card, profile,
                launches(blocked_hit=FRAMES * (BOUNCES + 1) + FRAMES * BOUNCES,
                         blocked_hit_ids=FRAMES * BOUNCES),
                card, profile, out_dir)
-    line, _ = train_path("terrain190k", scene, cam, card, LARGE_TRAIN_STEPS,
-                         "blocked_hit", False, None)
+    line, _, _ = train_path("terrain190k", scene, cam, card,
+                            LARGE_TRAIN_STEPS, "blocked_hit", False, None)
     print(f"phase 8 large-scene training: {line}", flush=True)
     torch.cuda.empty_cache()
     off, diff = image_parity("terrain190k", scene, cam)
@@ -2197,9 +2239,9 @@ def phase9_textured(device, terrain_tex, terrain_nee_tex, large_tex,
                launches(closest_hit_tex=FRAMES * (BOUNCES + 1),
                         any_hit=FRAMES * BOUNCES), card, profile, out_dir)
     off, diff = image_parity("terrain_tex", scene, cam)
-    line, totals = train_path("terrain_tex", scene, cam, card,
-                              TEX_TRAIN_STEPS, "closest_hit_tex", profile,
-                              out_dir, textured=True)
+    line, totals, _ = train_path("terrain_tex", scene, cam, card,
+                                 TEX_TRAIN_STEPS, "closest_hit_tex", profile,
+                                 out_dir, textured=True)
     counts["scatter_rows_rows"] = totals["scatter_rows_rows"]
     print(f"phase 9 texture recovery: {line}", flush=True)
     torch.cuda.empty_cache()
@@ -2708,6 +2750,546 @@ def phase10_image_extras(device, terrain, terrain_nee, terrain_tex, large,
           f"{remat_path(*terrain, card)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: mesh recovery and model loading
+# ---------------------------------------------------------------------------
+
+# the teapot-scale torus: R 1, r 0.4, 112 x 70 quads → 7,840 vertices,
+# 15,680 triangles (the reference's teapot: 7,850 and 15,704)
+TORUS = dict(R=1.0, r=0.4, nu=112, nv=70)
+TORUS_TEX = 256        # its base-colour map, TORUS_TEX x TORUS_TEX RGB
+EDGE_SAMPLES = 4096    # boundary samples a family (the reference's default)
+EDGE_TRAIN_STEPS = 3   # timed 1080p training steps with edge gradients
+# the reference CPU test's recovery (tests/test_invert_vertices.py:95-122)
+OCTA = dict(subdiv=2, size=64, views=4, steps=300, edge_samples=1024,
+            sobolev_lam=2.0, frame_cycle=2, ext=2.0)
+OCTA_BARS = dict(rms=0.02, albedo=0.03, loss_ratio=0.1)
+# BASELINE config 5 (tools/invert_vertices.py:main) on the torus, its 600
+# steps cut to 400 to keep the phase near 90 s: on an NVIDIA H100 80GB
+# HBM3 at 700.00 W the 600 steps took 63.6 s (0.106 s/step) and reached an
+# offset RMS of 0.00118
+FULL = dict(size=128, views=6, steps=400, edge_samples=4096,
+            sobolev_lam=50.0, smooth_weight=0.08, frame_cycle=2, seed=1)
+FULL_STEPS_REFERENCE = 600
+FULL_BARS = dict(rms=0.01, albedo=0.05)   # the reference's "recovered"
+START_RMS = 0.10
+START_ALBEDO = (0.35, 0.6, 0.55)
+MODEL_DIR = os.path.join("build", "chip_smoke_models")
+
+
+def torus_mesh(R, r, nu, nv):
+    """Closed torus around the y axis: (positions, normals, uvs, indices),
+    nu x nv vertices, 2 nu nv triangles wound outward, UVs (i / nu,
+    j / nv)."""
+    u = np.arange(nu) * (2 * np.pi / nu)
+    v = np.arange(nv) * (2 * np.pi / nv)
+    U, V = np.meshgrid(u, v, indexing="ij")
+    ring = R + r * np.cos(V)
+    pos = np.stack([ring * np.cos(U), r * np.sin(V), ring * np.sin(U)], -1)
+    nrm = np.stack([np.cos(V) * np.cos(U), np.sin(V),
+                    np.cos(V) * np.sin(U)], -1)
+    uv = np.stack(np.meshgrid(np.arange(nu) / nu, np.arange(nv) / nv,
+                              indexing="ij"), -1)
+    i = np.arange(nu * nv).reshape(nu, nv)
+    a, b = i, np.roll(i, -1, 0)
+    c, d = np.roll(i, -1, 1), np.roll(b, -1, 1)
+    tri = np.concatenate([np.stack([a, c, b], -1).reshape(-1, 3),
+                          np.stack([b, c, d], -1).reshape(-1, 3)])
+    pos, nrm = pos.reshape(-1, 3), nrm.reshape(-1, 3)
+    fn = np.cross(pos[tri[:, 1]] - pos[tri[:, 0]],
+                  pos[tri[:, 2]] - pos[tri[:, 0]])
+    if np.mean(np.sum(fn * nrm[tri[:, 0]], -1)) < 0:
+        tri = tri[:, ::-1]
+    return (pos.astype(np.float32), nrm.astype(np.float32),
+            uv.reshape(-1, 2).astype(np.float32),
+            np.ascontiguousarray(tri).reshape(-1).astype(np.uint32))
+
+
+def octasphere(subdiv=2, radius=1.0):
+    """Subdivided octahedron projected to the sphere (the reference test's
+    closed mesh, tests/test_invert_vertices.py:25)."""
+    v = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                  [0, 0, 1], [0, 0, -1]], np.float64)
+    f = [[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+         [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]]
+    for _ in range(subdiv):
+        nf, cache, vl = [], {}, v.tolist()
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in cache:
+                m = (np.array(vl[a]) + np.array(vl[b])) / 2
+                cache[key] = len(vl)
+                vl.append((m / np.linalg.norm(m)).tolist())
+            return cache[key]
+
+        for a, b, c in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nf += [[a, ab, ca], [ab, b, bc], [ca, bc, c], [ab, bc, ca]]
+        v, f = np.array(vl), nf
+    return (v * radius).astype(np.float32), np.array(f, np.int64)
+
+
+def write_obj(path, pos, nrm, idx, uvs=None, mtl=None):
+    """An OBJ with one vertex, normal (and UV) line per vertex and faces
+    indexing all three alike; ``mtl`` = (mtllib file, material name)."""
+    n = np.arange(1, pos.shape[0] + 1)
+    with open(path, "w") as f:
+        if mtl:
+            f.write(f"mtllib {mtl[0]}\nusemtl {mtl[1]}\n")
+        np.savetxt(f, pos, fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, nrm, fmt="vn %.9g %.9g %.9g")
+        if uvs is not None:
+            # OBJ's v runs up; the loaders flip it to the renderer's v-down
+            np.savetxt(f, np.stack([uvs[:, 0], 1.0 - uvs[:, 1]], -1),
+                       fmt="vt %.9g %.9g")
+        corners = np.repeat(n[idx.reshape(-1, 3)], 3 if uvs is not None
+                            else 2, axis=1)
+        fmt = ("f %d/%d/%d %d/%d/%d %d/%d/%d" if uvs is not None
+               else "f %d//%d %d//%d %d//%d")
+        np.savetxt(f, corners, fmt=fmt)
+
+
+def write_glb(path, pos, nrm, uvs, idx, png):
+    """A GLB of one textured mesh: positions, normals, UVs, uint32
+    indices and the PNG ``png`` embedded as a bufferView image."""
+    parts = [pos.astype(np.float32).tobytes(), nrm.astype(np.float32)
+             .tobytes(), uvs.astype(np.float32).tobytes(),
+             idx.astype(np.uint32).tobytes(), png]
+    views, blob = [], b""
+    for p in parts:
+        blob += b"\0" * ((-len(blob)) % 4)
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": len(p)})
+        blob += p
+    blob += b"\0" * ((-len(blob)) % 4)
+    n = pos.shape[0]
+    gltf = {
+        "asset": {"version": "2.0"},
+        "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
+        "meshes": [{"name": "torus", "primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
+            "indices": 3, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorTexture": {"index": 0}}}],
+        "textures": [{"source": 0}],
+        "images": [{"bufferView": 4, "mimeType": "image/png"}],
+        "buffers": [{"byteLength": len(blob)}],
+        "bufferViews": views,
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": n,
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5126, "count": n,
+             "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5126, "count": n,
+             "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5125, "count": idx.size,
+             "type": "SCALAR"}],
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * ((-len(js)) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+
+
+def write_models():
+    """The phase's model files in MODEL_DIR: terrain190k.obj (the
+    heightfield at n=LARGE_N, winding as terrain_scene), torus.obj with
+    torus.mtl and its map_Kd torus.png (written by the port's PNG codec),
+    and torus.glb with the PNG embedded → their paths."""
+    os.makedirs(MODEL_DIR, exist_ok=True)
+    verts, normals, idx = heightfield(LARGE_N, 4.0, -1.0,
+                                      np.random.default_rng(0))
+    idx = idx.reshape(-1, 3)[:, ::-1].reshape(-1)
+    paths = {k: os.path.join(MODEL_DIR, k) for k in
+             ("terrain190k.obj", "torus.obj", "torus.glb")}
+    write_obj(paths["terrain190k.obj"], verts, normals, idx)
+    pos, nrm, uvs, tidx = torus_mesh(**TORUS)
+    png = encode_png(texture_images(TORUS_TEX)[0], filters=4)
+    with open(os.path.join(MODEL_DIR, "torus.png"), "wb") as f:
+        f.write(png)
+    with open(os.path.join(MODEL_DIR, "torus.mtl"), "w") as f:
+        f.write("newmtl torus\nKd 1 1 1\nmap_Kd torus.png\n")
+    write_obj(paths["torus.obj"], pos, nrm, tidx, uvs, ("torus.mtl", "torus"))
+    write_glb(paths["torus.glb"], pos, nrm, uvs, tidx, png)
+    return paths
+
+
+def same_meshes(a, b):
+    """Two load_meshes results hold equal arrays and materials."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        for k in ("positions", "normals", "indices", "uvs"):
+            u, v = getattr(x, k), getattr(y, k)
+            if (u is None) != (v is None) or (
+                    u is not None and not np.array_equal(u, v)):
+                return False
+        mx, my = x.material or {}, y.material or {}
+        if mx.keys() != my.keys() or not all(
+                np.array_equal(mx[k], my[k]) for k in mx):
+            return False
+    return True
+
+
+def load_both_parsers(path):
+    """load_meshes through the native parser and through the Python one:
+    both must run here and agree → (native s, Python s)."""
+    if not native.available():
+        raise AssertionError("the native OBJ parser did not build here")
+    t0 = time.perf_counter()
+    fast = loaders.load_meshes(path)
+    t1 = time.perf_counter()
+    parse = native.parse_obj
+    native.parse_obj = lambda p: None     # the pure-Python parser
+    try:
+        slow = loaders.load_meshes(path)
+    finally:
+        native.parse_obj = parse
+    t2 = time.perf_counter()
+    if not same_meshes(fast, slow):
+        raise AssertionError(f"{path}: the native and Python parsers differ")
+    return t1 - t0, t2 - t1
+
+
+def loaded_scene(path, device, **kw):
+    """``load_model`` of ``path`` at the origin into a new builder, built
+    on ``device`` → (scene, load + build seconds)."""
+    t0 = time.perf_counter()
+    b = rt.SceneBuilder(texture_resolution=TEX_RES)
+    rt.load_model(path, b, placement="origin", **kw)
+    scene = b.build(device=device)
+    return scene, time.perf_counter() - t0
+
+
+def torus_camera(aspect):
+    return rt.Camera(origin=(0.0, 1.6, 2.6), look_at=(0.0, 0.0, 0.0),
+                     fov=45.0, aspect=aspect)
+
+
+def loading_path(device, paths, card):
+    """Part 1: the models through both parsers, then the loaded terrain190k
+    OBJ (B4) and textured GLB torus (B1-tex) rendered at the main path's
+    settings and held to the plain path at 256x144 → the loaded
+    terrain190k scene."""
+    t_obj = {k: load_both_parsers(paths[k])
+             for k in ("terrain190k.obj", "torus.obj")}
+    big, big_s = loaded_scene(paths["terrain190k.obj"], device,
+                              albedo=(0.7, 0.5, 0.3), smoothness=0.3)
+    glb, glb_s = loaded_scene(paths["torus.glb"], device)
+    if big.num_tris != 2 * (LARGE_N - 1) ** 2 or not bh.uses_blocked(big):
+        raise AssertionError(f"the loaded OBJ has {big.num_tris} triangles")
+    if glb.num_textures != 1 or glb.num_tris != 2 * TORUS["nu"] * TORUS["nv"]:
+        raise AssertionError("the loaded GLB lost its texture or triangles")
+    params = rt.RenderParams(**PARAMS)
+    cam = rt.Camera(origin=(0.0, 1.5, 6.0), look_at=(0.0, -0.8, 0.0),
+                    fov=45.0, aspect=W / H)
+    segs = W * H * (BOUNCES + 1) * FRAMES
+    out = []
+    for label, scene, cam_, key in (
+            ("terrain190k.obj", big, cam, "blocked_hit"),
+            ("torus.glb", glb, torus_camera(W / H), "closest_hit_tex")):
+        img, c, runs, _ = render_path(
+            f"loaded {label}", scene, cam_, params,
+            launches(**{key: FRAMES * (BOUNCES + 1)}))
+        off, diff = image_parity(f"loaded {label}", scene, cam_)
+        out.append(f"{label} {scene.num_tris} tris: {rate_text(runs, segs)}"
+                   f"), {c[key]} {key} launches, 256x144 parity frac_off "
+                   f"{off} (gate {PARITY_GATE}) max |diff| {diff}")
+    print(f"phase 11 loading (native parser built: {native.available()}): "
+          + "; ".join(f"{k} native {a:.3f} s, Python {b:.3f} s, equal"
+                      for k, (a, b) in t_obj.items())
+          + f"; load_model + build: terrain190k.obj {big_s:.3f} s, "
+          f"torus.glb {glb_s:.3f} s (texture {TORUS_TEX}x{TORUS_TEX} PNG, "
+          f"decoded by the port's codec) | {card}", flush=True)
+    print(f"phase 11 loaded renders {W}x{H} b{BOUNCES} {FRAMES} frames: "
+          + "; ".join(out) + f" | {card}", flush=True)
+    return big
+
+
+def timed_estimate(scene, basis, params, cot, topo, n_sph, seed):
+    """One boundary estimate through the kernels, timed: the draws, then
+    ``gradients_from_draws`` with a spy timing each side-ray trace (CUDA
+    events) → (draws, gradients, the launch counts of the gradients,
+    {draws, traces, rest} ms)."""
+    g = torch.Generator(device=scene.device)
+    g.manual_seed(seed)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    draws = edges.draw_edge_samples(scene, basis, params, g, EDGE_SAMPLES,
+                                    n_sph, topo)
+    ev[1].record()
+    traces, real = [], edges._radiance_at
+
+    def spy(*a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        traces.append((e0, e1))
+        return out
+
+    edges._radiance_at = spy
+    try:
+        reset_counts()
+        ev[2].record()
+        grads = edges.gradients_from_draws(scene, basis, params, cot, draws,
+                                           topology=topo)
+        ev[3].record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        edges._radiance_at = real
+    trace_ms = sum(a.elapsed_time(b) for a, b in traces)
+    return draws, grads, counts, dict(
+        draws=ev[0].elapsed_time(ev[1]), traces=trace_ms,
+        rest=ev[2].elapsed_time(ev[3]) - trace_ms)
+
+
+def estimator_check(label, scene, cam, params, cot, topo, n_sph):
+    """The estimator on ``scene`` through the kernels against the plain
+    path on the same draws (grad_gate), its B1 launches held to 2 side
+    traces x (bounces + 1) a family → text."""
+    basis = rt.camera_basis(cam)
+    timed_estimate(scene, basis, params, cot, topo, n_sph, 0)    # warm-up
+    draws, got, counts, ms = timed_estimate(scene, basis, params, cot, topo,
+                                            n_sph, 1)
+    families = 1 + (n_sph > 0 and scene.num_spheres > 0)
+    key = "closest_hit_tex" if scene.num_textures else "closest_hit"
+    want = launches(**{key: 2 * (params.bounces + 1) * families})
+    if counts != want:
+        raise AssertionError(f"{label} estimator launches {counts} != {want}")
+    ref = edges.gradients_from_draws(scene, basis,
+                                     params.replace(backend="torch"), cot,
+                                     draws, topology=topo)
+    worst, leaf, scales = grad_gate(f"{label} estimator", got, ref)
+    if not any(scales[k] > 0 for k in ("tri_v0", "tri_v1", "tri_v2")):
+        raise AssertionError(f"{label} estimator: all-zero edge gradient")
+    return (f"{label} {params.width}x{params.height} b{params.bounces} "
+            f"{EDGE_SAMPLES} edge + {n_sph if families > 1 else 0} sphere "
+            f"samples: draws {ms['draws']:.3f} ms, side traces "
+            f"{ms['traces']:.3f} ms, jvp/vjp and the rest {ms['rest']:.3f} "
+            f"ms; {counts[key]} {key} launches; kernels vs plain largest "
+            f"max |diff| / max |g| {worst:.3g} ({leaf}; gate {GRAD_PARITY})")
+
+
+def mse_cot(scene, start, basis, params):
+    """The MSE cotangent 2 (img − target) / n of frame 0 of ``start``
+    against frame 0 of ``scene``."""
+    with torch.no_grad():
+        target = render_frame(scene, basis, params, 0)
+        img = render_frame(start, basis, params, 0)
+    return 2.0 * (img - target) / img.numel()
+
+
+def edge_train_steps(scene, cam, topo, card, phase5_s):
+    """EDGE_TRAIN_STEPS timed 1080p training steps (after one warm-up) of
+    phase 5's set-up with ``edge_samples=EDGE_SAMPLES`` and the topology:
+    per step (bounces + 1) B1 and B2 launches for the interior gradient,
+    bounces + 1 B1 for the frame the cotangent is taken from, and 2 side
+    traces x (bounces + 1) a family; one packing; every gradient finite
+    → text."""
+    params = rt.RenderParams(**PARAMS)
+    _, (_, _, start, basis, target, _) = train_setup(scene, cam)
+    init_fn, step_fn = make_train_step(params, train_optimizer,
+                                       edge_samples=EDGE_SAMPLES,
+                                       topology=topo)
+    trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
+    seg = BOUNCES + 1
+    want = launches(closest_hit=seg + seg + 2 * 2 * seg, scatter_rows=seg)
+    times, losses = [], []
+    for step in range(1 + EDGE_TRAIN_STEPS):
+        reset_counts()
+        packs = ch.scene_planes.packs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainable, opt, loss = step_fn(trainable, opt, start, basis, target,
+                                       0)
+        torch.cuda.synchronize()
+        if step:
+            times.append(time.perf_counter() - t0)
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"edge training step {step}: launches "
+                                 f"{counts}, want {want}")
+        if ch.scene_planes.packs != packs + 1:
+            raise AssertionError(f"edge training step {step} packed "
+                                 f"{ch.scene_planes.packs - packs} times")
+        losses.append(float(loss))
+    for k, p in trainable.items():
+        if not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"edge training: {k}'s gradient not finite")
+    med = float(np.median(times))
+    return (f"terrain {W}x{H} b{BOUNCES} with edge_samples={EDGE_SAMPLES} "
+            f"and topology: {med:.4f} s/step median "
+            f"({[round(x, 4) for x in times]}), phase 5's without "
+            f"{phase5_s:.4f} s/step; launches a step {want}, 1 packing; "
+            f"loss {losses[0]:.6g} -> {losses[-1]:.6g} | {card}")
+
+
+def edge_path(device, terrain, big, paths, card, phase5_s):
+    """Part 2: the estimator on the torus (the recovery's 128² view of a
+    10%-perturbed torus) and on terrain at 1080p against the plain path;
+    build_topology's seconds on the torus and on the loaded terrain190k;
+    the 1080p training steps with edges."""
+    torus, topo_t, center, ext = invert_vertices.recovery_scene(
+        paths["torus.obj"], device)
+    t0 = time.perf_counter()
+    topology.build_topology(torus)
+    torus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    topo_big = topology.build_topology(big)
+    big_s = time.perf_counter() - t0
+    print(f"phase 11 build_topology (host): torus {torus.num_tris} tris "
+          f"{topo_t.num_verts} vertices {topo_t.num_edges} edges "
+          f"{torus_s:.3f} s; terrain190k {big.num_tris} tris "
+          f"{topo_big.num_verts} vertices {topo_big.num_edges} edges "
+          f"{big_s:.3f} s", flush=True)
+    del topo_big
+    g = torch.Generator(device=device)
+    g.manual_seed(FULL["seed"])
+    # the offsets move vertices, not connectivity: the topology holds
+    start = topology.apply_vertex_offsets(torus, topo_t, invert_vertices
+                                          .smooth_field(g, topo_t.base_verts,
+                                                        ext, START_RMS * ext))
+    params = rt.RenderParams(width=FULL["size"], height=FULL["size"],
+                             bounces=1, skybox=True)
+    cam = rt.Camera(origin=tuple(center + ext * np.array([0.85, 0.4, 0.0])),
+                    look_at=tuple(center), aspect=1.0, focus_dist=1.0)
+    lines = [estimator_check("torus", start, cam, params,
+                             mse_cot(torus, start, rt.camera_basis(cam),
+                                     params), topo_t, 0)]
+    scene, tcam = terrain
+    topo = topology.build_topology(scene)
+    start_t = dataclasses.replace(
+        scene, tri_albedo=scene.tri_albedo * ALBEDO_START,
+        sphere_albedo=scene.sphere_albedo * ALBEDO_START)
+    tparams = rt.RenderParams(**PARAMS)
+    lines.append(estimator_check(
+        "terrain", start_t, tcam, tparams,
+        mse_cot(scene, start_t, rt.camera_basis(tcam), tparams), topo,
+        EDGE_SAMPLES))
+    print("phase 11 edge gradients: " + "; ".join(lines) + f" | {card}",
+          flush=True)
+    print("phase 11 edge training: "
+          + edge_train_steps(scene, tcam, topo, card, phase5_s), flush=True)
+
+
+def recovery(label, scene, topo, center, ext, cfg):
+    """``run_vertex_recovery`` at ``cfg`` from a START_RMS smooth field
+    (seeded) and START_ALBEDO, its launches and packings counted over the
+    run; finite, the loss of the last cycle of views below the first's,
+    launches as the loop makes them: per
+    view a coverage AOV and per (view, frame) pair a target before the
+    loop (bounces + 1 launches each), then per step 2 for the frame, 1 for
+    its coverage AOV and 2 side traces x 2, and 2 x 2 of the scatter-add
+    (the frame's backward for the offsets, again for the albedo) → (line
+    parts, rms, albedo error, losses)."""
+    params = rt.RenderParams(width=cfg["size"], height=cfg["size"],
+                             bounces=1, skybox=True)
+    bases = invert_vertices.ring_cameras(center, ext, cfg["views"])
+    g = torch.Generator(device=scene.device)
+    g.manual_seed(cfg.get("seed", 1))
+    start = invert_vertices.smooth_field(g, topo.base_verts, ext,
+                                         START_RMS * ext)
+    steps, seg = cfg["steps"], params.bounces + 1
+    pairs = math.lcm(cfg["views"], cfg["frame_cycle"])
+    key = "closest_hit_tex" if scene.num_textures else "closest_hit"
+    before = cfg["views"] + seg * min(steps, pairs)
+    want = launches(**{key: before + steps * (seg + 1 + 2 * seg)},
+                    scatter_rows=steps * 2 * seg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    packs = ch.scene_planes.packs
+    t0 = time.perf_counter()
+    off, alb, losses = invert_vertices.run_vertex_recovery(
+        scene, topo, params, bases, steps, start, np.array(START_ALBEDO),
+        edge_samples=cfg["edge_samples"], frame_cycle=cfg["frame_cycle"],
+        sobolev_lam=cfg["sobolev_lam"],
+        smooth_weight=cfg.get("smooth_weight", 0.08),
+        smooth_weight_end=cfg.get("smooth_weight", 0.08), ext=ext, log=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    packed = ch.scene_planes.packs - packs
+    if counts != want:
+        raise AssertionError(f"{label} recovery launches {counts} != {want}")
+    if packed != steps + 1:
+        raise AssertionError(f"{label} recovery packed {packed} times, want "
+                             f"one a step and one for the truth")
+    if not (np.isfinite(off).all() and np.isfinite(alb).all()
+            and np.isfinite(losses).all()):
+        raise AssertionError(f"{label} recovery is not finite")
+    views = cfg["views"]   # a step's loss is its view's: compare cycles
+    if not np.mean(losses[-views:]) < np.mean(losses[:views]):
+        raise AssertionError(f"{label} recovery: the loss did not fall over "
+                             f"a cycle of the views: {losses}")
+    rms = float(np.sqrt(np.mean(np.sum(off ** 2, -1)))) / ext
+    alb_err = float(np.abs(alb - invert_vertices.TRUE_ALBEDO).max())
+    curve = [round(float(x), 6) for x in losses[::max(1, steps // 10)]]
+    text = (f"{label} {scene.num_tris} tris {topo.num_verts} vertices, "
+            f"{steps} steps {cfg['size']}x{cfg['size']} x {cfg['views']} "
+            f"views, {cfg['edge_samples']} edge samples, lambda "
+            f"{cfg['sobolev_lam']}: offset RMS {rms:.5f} of the extent "
+            f"(start {START_RMS}), albedo error {alb_err:.4f}, loss "
+            f"{losses[0]:.6g} -> {losses[-1]:.6g} (every "
+            f"{max(1, steps // 10)}th: {curve}); {secs / steps:.4f} s/step "
+            f"({secs:.1f} s), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+            f"{packed / steps:.3f} packings a step, launches {counts} "
+            f"({(counts[key] - before) / steps:.0f} {key} and "
+            f"{counts['scatter_rows'] / steps:.0f} scatter-add a step)")
+    return text, rms, alb_err, losses
+
+
+def recovery_path(device, paths, card):
+    """Parts 3 and 4: the reference CPU test's octasphere recovery, held to
+    its bars, and BASELINE config 5 on the torus loaded from its OBJ,
+    printed beside the reference's bars."""
+    verts, faces = octasphere(OCTA["subdiv"])
+    normals = verts / np.linalg.norm(verts, axis=1, keepdims=True)
+    scene = (rt.SceneBuilder()
+             .add_mesh(verts, normals, faces.reshape(-1),
+                       albedo=tuple(invert_vertices.TRUE_ALBEDO),
+                       smoothness=0.0)
+             .build(device=device))
+    topo = topology.build_topology(scene)
+    scene = topology.apply_vertex_offsets(
+        scene, topo, torch.zeros((topo.num_verts, 3), device=device))
+    text, rms, alb_err, losses = recovery("octasphere", scene, topo,
+                                          np.zeros(3), OCTA["ext"], OCTA)
+    if not (rms < OCTA_BARS["rms"] and alb_err < OCTA_BARS["albedo"]
+            and losses[-1] < OCTA_BARS["loss_ratio"] * losses[0]):
+        raise AssertionError(f"octasphere recovery misses the reference "
+                             f"test's bars {OCTA_BARS}: {text}")
+    print(f"phase 11 recovery (the reference CPU test's configuration, bars "
+          f"{OCTA_BARS}): {text} | {card}", flush=True)
+    torus, topo_t, center, ext = invert_vertices.recovery_scene(
+        paths["torus.obj"], device)
+    text, rms, alb_err, _ = recovery("torus", torus, topo_t, center, ext,
+                                     FULL)
+    print(f"phase 11 recovery at full width (BASELINE config 5 on the "
+          f"loaded torus, {FULL['steps']} of its {FULL_STEPS_REFERENCE} "
+          f"steps; the reference's recovered bars RMS < "
+          f"{FULL_BARS['rms']}, albedo < {FULL_BARS['albedo']}): {text}; "
+          f"recovered "
+          f"{rms < FULL_BARS['rms'] and alb_err < FULL_BARS['albedo']} "
+          f"(ungated) | {card}", flush=True)
+
+
+def phase11_recovery(device, terrain, card, phase5_s):
+    """Mesh recovery and model loading (module docstring)."""
+    paths = write_models()
+    big = loading_path(device, paths, card)
+    edge_path(device, terrain, big, paths, card, phase5_s)
+    del big
+    torch.cuda.empty_cache()
+    recovery_path(device, paths, card)
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2760,8 +3342,9 @@ def main(argv):
         "3", phase3_main_path, device, terrain, card, args.profile, args.out)
     run("4", phase4_parity, device, terrain)
     run("4b", phase4b_nee_parity, device, terrain_nee)
-    counts["scatter_rows"] = run("5", phase5_training, device, terrain, card,
-                                 args.profile, args.out)
+    counts["scatter_rows"], phase5_s = run("5", phase5_training, device,
+                                           terrain, card, args.profile,
+                                           args.out)
     torch.cuda.empty_cache()
     run("6", phase6_grad_parity, device, terrain)
     run("6b", phase6b_nee_grad_parity, device, terrain_nee)
@@ -2781,6 +3364,9 @@ def main(argv):
     torch.cuda.empty_cache()
     run("10", phase10_image_extras, device, terrain, terrain_nee,
         terrain_tex, large, terrain_rate, card)
+    del large, terrain_tex, terrain_nee
+    torch.cuda.empty_cache()
+    run("11", phase11_recovery, device, terrain, card, phase5_s)
     print(f"seconds per phase: {secs}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("max_abs_err", "mismatches", "ms", "plain_ms", "plain_rays",

@@ -11,7 +11,11 @@ step), on scenes of any size, textures, and the image extras: primary-ray
 AOVs (``render_aov``), adaptive sampling (``render_adaptive``), the
 à-trous denoiser (``denoise``, ``denoise_render``), R2 anti-aliasing
 (``RenderParams.qmc``), wavefront compaction (``compaction``) and
-per-segment rematerialization (``remat``). Four hand-written CUDA
+per-segment rematerialization (``remat``), and geometry recovery:
+edge-sampled boundary gradients (``grad.edges``), mesh connectivity and
+vertex fields (``grad.topology``), the per-vertex recovery loop
+(``tools.invert_vertices``) and the OBJ / glTF / GLB loaders (``io``,
+``models``). Four hand-written CUDA
 kernels, built with nvcc at first use, carry them: the closest-hit search
 (``ops/closest_hit.py``, ``csrc/closest_hit.cu``), its backward, the
 scatter-add of the winner rows' cotangents (``ops/scatter_rows.py``,
@@ -34,9 +38,10 @@ Quick start:
 plain PyTorch oracle for a scene on the CPU.
 """
 
-from . import grad, io, lights
+from . import grad, io, lights, models
 from .camera import Camera, CameraBasis, camera_basis, camera_rays
 from .denoise import denoise, denoise_render
+from .io import MeshData, load_glb, load_gltf, load_meshes, load_model, load_obj
 from .ops.intersect import occluded
 from .renderer import (Renderer, accumulate, render, render_adaptive,
                        render_aov, render_frame, render_pixels,
@@ -65,5 +70,7 @@ __all__ = [
     "Scene", "SceneBuilder", "builtin_scene", "scene_balls",
     "scene_from_numpy", "scene_metal", "scene_random_balls", "scene_room",
     "BUILTIN_SCENES", "SCENE_IDS", "RenderParams", "grad", "io", "lights",
-    "occluded",
+    "models", "occluded",
+    "MeshData", "load_obj", "load_gltf", "load_glb", "load_meshes",
+    "load_model",
 ]

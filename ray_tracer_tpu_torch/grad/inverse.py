@@ -16,8 +16,7 @@ Differences from the reference, all in how state is held:
   * nothing is compiled: ``step_fn`` runs eagerly.
 
 Not ported yet, raising ``NotImplementedError``: the device mesh
-(``ROADMAP.md`` A13), edge-sampled boundary gradients and mesh topology
-(A11).
+(``ROADMAP.md`` A13).
 """
 
 from __future__ import annotations
@@ -129,10 +128,49 @@ def _adam(params):
     return torch.optim.Adam(params, lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
 
 
+EDGE_SEED = 1234   # the boundary estimator's seed, as the reference's key
+
+
+def edge_generator(frame_index, device) -> torch.Generator:
+    """The boundary estimator's generator for a training step's frame:
+    seeded with EDGE_SEED · 2^20 + frame_index on ``device``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(EDGE_SEED * 2 ** 20 + int(frame_index))
+    return g
+
+
+def _add_boundary_gradients(grads, full: Scene, basis, params, target,
+                            frame_index, edge_samples, topology):
+    """``grads`` plus the edge-sampled boundary gradients of the MSE at
+    ``full`` (the current scene), on the keys both have."""
+    from .edges import boundary_gradients
+    with torch.no_grad():
+        img = render_frame(full, basis, params, int(frame_index))
+    cot = 2.0 * (img - target) / img.numel()      # d(mse)/d(img)
+    bg = boundary_gradients(full, basis, params, cot,
+                            edge_generator(frame_index, full.device),
+                            n_tri_samples=edge_samples,
+                            n_sph_samples=edge_samples, topology=topology)
+    return {k: v + bg[k] if k in bg else v for k, v in grads.items()}
+
+
 def make_train_step(params: RenderParams, optimizer=None, mesh=None,
                     edge_samples: int = 0, grad_chunks: int = 0,
                     topology=None):
     """Build an optimizer step over trainable scene leaves.
+
+    ``edge_samples > 0`` adds the edge-sampled visibility (boundary)
+    gradients (``grad/edges.py``) for geometry fields: without them,
+    autodiff sees only shading changes, not silhouette motion. The frame
+    is rendered once more without autograd, the cotangent of the MSE is
+    2 (img − target) / img.numel(), and the estimator draws from a
+    ``torch.Generator`` on the scene's device seeded with
+    1234 · 2^20 + frame_index, so a step's draws are a function of its
+    frame. Pass ``topology`` (``grad.topology.build_topology``) for meshes
+    with shared edges: it fixes the uniform sampler's interior-edge double
+    count and concentrates samples on silhouette, boundary and crease
+    edges. The estimate is added to the interior gradient of each key it
+    has (tri_v0..v2, sphere_center, sphere_radius) that is trainable.
 
     ``optimizer`` is a factory from a list of parameter tensors to a
     ``torch.optim`` optimizer (default: Adam, lr 1e-2). ``grad_chunks > 1``
@@ -148,10 +186,6 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
     updates them in place and returns the same dict.
     """
     _no_mesh(mesh)
-    if edge_samples or topology is not None:
-        raise NotImplementedError(
-            "edge-sampled boundary gradients (edge_samples, topology) are "
-            "not ported yet (ROADMAP.md A11)")
     make_optimizer = optimizer or _adam
 
     def init_fn(scene: Scene, fields: Sequence[str] = DEFAULT_TRAINABLE):
@@ -182,6 +216,10 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
             grads = {k: (torch.zeros_like(trainable[k]) if gk is None
                          else gk) for k, gk in zip(names, g)}
             loss = loss.detach()
+        if edge_samples:
+            grads = _add_boundary_gradients(
+                grads, merge_scene(scene, trainable), basis, params, target,
+                frame_index, edge_samples, topology)
         for k, p in trainable.items():
             p.grad = grads[k]
         opt_state.step()

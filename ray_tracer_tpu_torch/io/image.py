@@ -2,13 +2,16 @@
 
 Port of ``ray_tracer_tpu.io.image``. The renderer's row 0 is the bottom of
 the frame, so the writers flip vertically for display. Images may be
-tensors on any device or numpy arrays.
+tensors on any device or numpy arrays. PNGs are written by the port's own
+codec (``io/png.py``), without Pillow.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .png import encode_png
 
 
 def _host(img) -> np.ndarray:
@@ -33,10 +36,9 @@ def to_uint8(img, flip: bool = True) -> np.ndarray:
 
 
 def write_png(path: str, img, flip: bool = True) -> None:
-    """Write a linear-radiance image as an sRGB PNG (needs Pillow)."""
-    from PIL import Image
-
-    Image.fromarray(to_uint8(img, flip=flip), mode="RGB").save(path)
+    """Write a linear-radiance image as an 8-bit sRGB PNG."""
+    with open(path, "wb") as f:
+        f.write(encode_png(to_uint8(img, flip=flip)))
 
 
 def write_npy(path: str, img, flip: bool = True) -> None:

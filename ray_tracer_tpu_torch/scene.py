@@ -98,6 +98,12 @@ class Scene:
         return dataclasses.replace(self, **{
             k: getattr(self, k).to(device) for k in TENSOR_FIELDS})
 
+    def detach(self) -> "Scene":
+        """The scene without autograd: detached aliases of the same
+        storage (and version), so the kernels' plane cache knows them."""
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).detach() for k in TENSOR_FIELDS})
+
 
 def scene_from_numpy(fields: Dict[str, object], device="cuda") -> Scene:
     """Scene from numpy leaves, e.g. a reference scene's

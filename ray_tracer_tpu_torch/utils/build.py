@@ -14,6 +14,10 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` without
 ``--use_fast_math``, so that every kernel computes each float operation
 as PyTorch's elementwise operations do (no fused multiply-add, IEEE
 division and square root) and matches its plain version bit for bit.
+
+The host library of ``native/rtt_native.cpp`` (``utils/native.py``) is
+built the same way with ``g++`` and the flags of ``native/Makefile``
+(``build_host``), keyed by its source and flags.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "ray_tracer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+REPO_DIR = PKG_DIR.parent
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
@@ -71,24 +77,48 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of this source and these
-    flags exists. The compiler's report (registers, spills) is kept
-    beside the library as ``.log``. Raises if nvcc fails."""
-    out = library_path(name)
+def _compile(compiler: str, flags, source: Path, out: Path) -> Path:
+    """Compile ``source`` into ``out`` unless it exists. The compiler's
+    report is kept beside the library as ``.log``. Raises if it fails."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{name}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed "
+                           f"({proc.returncode}) building {source.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of this source and these
+    flags exists; the report (registers, spills) is kept as ``.log``.
+    Raises if nvcc fails."""
+    return _compile(find_nvcc(), NVCC_FLAGS, CSRC_DIR / f"{name}.cu",
+                    library_path(name))
+
+
+def host_library_path(source: Path) -> Path:
+    """Where the host library built from the C++ file ``source`` lives,
+    keyed like ``library_path`` by a hash of the flags and the source."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(source.name.encode() + b"\0" + source.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path) -> Path:
+    """Compile the C++ file ``source`` with g++ (``$CXX`` if set) and
+    HOST_FLAGS unless a library of this source and these flags exists.
+    Raises if the compiler is missing or fails."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler (g++ or $CXX) found")
+    return _compile(cxx, HOST_FLAGS, source, host_library_path(source))
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,10 +8,23 @@ test needs both to compute on identical data.
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """Run a module's tests on one intra-op thread, then restore the count.
+    Their tensors are small and their ops many: under the suite's parallel
+    workers, every worker's thread pool on every core costs them ~30× in
+    scheduling."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def heightfield(n, extent, y0, rng):

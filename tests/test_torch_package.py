@@ -34,6 +34,12 @@ def test_import_leaves_jax_out():
             "import ray_tracer_tpu_torch.grad.inverse\n"
             "import ray_tracer_tpu_torch.utils.build\n"
             "import ray_tracer_tpu_torch.io\n"
+            "import ray_tracer_tpu_torch.io.loaders\n"
+            "import ray_tracer_tpu_torch.grad.edges\n"
+            "import ray_tracer_tpu_torch.grad.topology\n"
+            "import ray_tracer_tpu_torch.models\n"
+            "import ray_tracer_tpu_torch.utils.native\n"
+            "import ray_tracer_tpu_torch.tools.invert_vertices\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tracer_tpu')]\n"
             "assert not bad, bad\n"
@@ -160,9 +166,13 @@ def test_image_io_matches_reference(tmp_path):
 
 
 def test_public_names_match_reference():
+    import ray_tracer_tpu.io as j_io
     ported = set(trt.__all__) - {"scene_from_numpy", "io", "grad", "lights",
-                                 "occluded"}
+                                 "models", "occluded"} - set(j_io.__all__)
     assert ported <= set(jrt.__all__)
+    assert trt.io.__all__ == j_io.__all__
+    assert trt.models.__all__ == ["scene", "asset", "BUILTIN_SCENES",
+                                  "SCENE_IDS"]
     for name in trt.__all__:
         assert hasattr(trt, name), name
     import ray_tracer_tpu.grad as j_grad
