@@ -8,9 +8,11 @@ the training path (phase 5), the forward render with next-event estimation
 (phase 8) and on textured scenes through both closest-hit kernels'
 textured variants (phase 9), and the image extras: AOVs, adaptive
 sampling, QMC, the denoiser, wavefront compaction and remat (phase 10),
-and mesh recovery from loaded models: the OBJ / glTF / GLB loaders, the
+mesh recovery from loaded models: the OBJ / glTF / GLB loaders, the
 edge-sampled boundary gradients and the per-vertex recovery loop
-(phase 11). It imports nothing of JAX. Each path is
+(phase 11), and multi-device rendering and training on
+``torch.distributed``, the command line, the viewer, the differentiable
+camera and the metrics (phase 12). It imports nothing of JAX. Each path is
 driven with the kernels' launch counts set to 0 just before it and read
 just after.
 Phases, each printing one line (phase 1 one per kernel):
@@ -262,32 +264,39 @@ import json
 import math
 import os
 import re
+import socket
 import struct
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import ray_tracer_tpu_torch as rt
-from ray_tracer_tpu_torch import lights, renderer, sampling
+from ray_tracer_tpu_torch import cli, lights, renderer, sampling, viewer
 from ray_tracer_tpu_torch.grad import DEFAULT_TRAINABLE, make_train_step
 from ray_tracer_tpu_torch.grad import edges, topology
 from ray_tracer_tpu_torch.io import loaders
-from ray_tracer_tpu_torch.io.png import encode_png
+from ray_tracer_tpu_torch.io.image import to_uint8
+from ray_tracer_tpu_torch.io.png import decode_png, encode_png
 from ray_tracer_tpu_torch.ops import anyhit as ah
 from ray_tracer_tpu_torch.ops import blocked_hit as bh
 from ray_tracer_tpu_torch.ops import closest_hit as ch
 from ray_tracer_tpu_torch.ops import intersect
 from ray_tracer_tpu_torch.ops import scatter_rows as sc
+from ray_tracer_tpu_torch.parallel import (distributed, make_mesh,
+                                           render_frame_distributed)
 from ray_tracer_tpu_torch.renderer import (_blocked_ids, render_frame,
                                            render_progressive,
                                            resolved_backend)
 from ray_tracer_tpu_torch.scene import TENSOR_FIELDS
 from ray_tracer_tpu_torch.tools import invert_vertices
 from ray_tracer_tpu_torch.utils import build, native
+from ray_tracer_tpu_torch.utils.metrics import StageTimer
 
 W, H, FRAMES, BOUNCES = 1920, 1080, 8, 3
 TRIALS = 5  # timed 8-frame renders of the main path
@@ -3288,6 +3297,592 @@ def phase11_recovery(device, terrain, card, phase5_s):
     del big
     torch.cuda.empty_cache()
     recovery_path(device, paths, card)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: multi-device rendering and training on torch.distributed, the
+# command line, the viewer, the differentiable camera and the metrics.
+# ---------------------------------------------------------------------------
+
+RANKS = 2                # the two-rank group: two processes on one card
+CHUNKS = 2               # grad_chunks of the two-rank training step
+SUBPROCESS_TIMEOUT = 600  # s for each rank and each command line process
+CLI_DIR = os.path.join("build", "chip_smoke_cli")
+VIEWER_KEYS = ("w", "d", "0", "B", "1", "R", "2", "b", "3", "r", "a")
+VIEWER_FRAMES = 16
+VIEWER_RESIZE = (1280, 720)
+POSE_SIZE, POSE_STEPS = 64, 60       # the reference test's recovery, at 64²
+POSE_OFFSET = (0.25, -0.15, 0.2)     # its start offset of the origin
+POSE_BAR = 0.25          # its bar: final error < 0.25 x the start error
+
+
+class GradProbe(torch.optim.SGD):
+    """SGD at rate 0 that keeps the gradients each step hands it (in its
+    parameters' order), so a training step's gradient can be compared and
+    the trainables stay where they are."""
+
+    def __init__(self, leaves):
+        super().__init__(leaves, lr=0.0)
+        self.grads = None
+
+    def step(self, closure=None):
+        self.grads = [p.grad.detach().clone() for g in self.param_groups
+                      for p in g["params"]]
+        return super().step(closure)
+
+
+def probe_grads(params, start, basis, target, fields=DEFAULT_TRAINABLE,
+                **step_kw):
+    """One ``make_train_step`` step over ``fields`` from ``start`` with
+    ``step_kw`` (mesh, grad_chunks, edge_samples, topology) → ({field:
+    gradient}, loss, step seconds to the card's end)."""
+    init_fn, step_fn = make_train_step(params, GradProbe, **step_kw)
+    trainable, opt = init_fn(start, fields)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt, loss = step_fn(trainable, opt, start, basis, target, 0)
+    torch.cuda.synchronize()
+    return dict(zip(fields, opt.grads)), float(loss), time.perf_counter() - t0
+
+
+def one_rank_path(device, scenes, card):
+    """``render_frame_distributed`` on the one-rank default mesh (NCCL, world
+    size 1) against ``render_frame`` on terrain, terrain190k and
+    terrain_nee, bit for bit, each driven with the counts at 0 and held to
+    one frame's launches; then ``make_train_step(mesh=make_mesh())``'s
+    gradient against the same step without a mesh → text."""
+    mesh = make_mesh()
+    params = rt.RenderParams(**PARAMS)
+    seg = BOUNCES + 1
+    out = []
+    for label, (scene, cam), p, want in (
+            ("terrain", scenes["terrain"], params,
+             launches(closest_hit=seg)),
+            ("terrain190k", scenes["terrain190k"], params,
+             launches(blocked_hit=seg)),
+            ("terrain_nee", scenes["terrain_nee"], params.replace(**NEE),
+             launches(closest_hit=seg, any_hit=BOUNCES))):
+        basis = rt.camera_basis(cam)
+        want_img = render_frame(scene, basis, p, 0)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = render_frame_distributed(scene, basis, p, 0, mesh)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"one-rank {label}: launches {counts}, "
+                                 f"want {want}")
+        if not torch.equal(got, want_img):
+            raise AssertionError(f"one-rank {label}: the sharded frame is "
+                                 f"not render_frame's")
+        out.append(f"{label} bit-equal, launches "
+                   f"{ {k: v for k, v in counts.items() if v} }")
+    scene, cam = scenes["terrain"]
+    _, (_, _, start, basis, target, _) = train_setup(scene, cam)
+    ref, loss, _ = probe_grads(params, start, basis, target)
+    got, loss_m, step_s = probe_grads(params, start, basis, target,
+                                      mesh=mesh)
+    worst, leaf, _ = grad_gate("one-rank training step", got, ref)
+    return (f"backend {dist.get_backend()}, world {dist.get_world_size()}: "
+            + ", ".join(out) + f"; training step gradient vs no mesh: worst "
+            f"{worst:.3g} of max |g| ({leaf}; gate {GRAD_PARITY}), loss "
+            f"{loss_m:.6g} vs {loss:.6g}, {step_s:.4f} s | {card}")
+
+
+def rank_worker(rank, port, work, device):
+    """One rank of the two-rank group (a subprocess of this script): gloo
+    on ``device`` (NCCL refuses two ranks on one GPU; gloo takes the CUDA
+    tensors), the 1080p terrain frame of the whole group into
+    ``work/frame<rank>.npy`` and the gradient of the training step on the
+    mesh (grad_chunks=CHUNKS, edge_samples=EDGE_SAMPLES, the topology) into
+    ``work/grads<rank>.npz``, each after one warm-up; prints one JSON line
+    of its times."""
+    distributed.initialize(f"localhost:{port}", RANKS, rank, device=device,
+                           backend="gloo")
+    mesh = make_mesh(RANKS)
+    scene, cam = terrain_scene(device)
+    params = rt.RenderParams(**PARAMS)
+    basis = rt.camera_basis(cam)
+    times = []
+    for frame in (1, 0):              # a warm-up frame, then frame 0
+        dist.barrier()
+        torch.cuda.synchronize(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = render_frame_distributed(scene, basis, params, frame, mesh)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    np.save(os.path.join(work, f"frame{rank}.npy"), img.cpu().numpy())
+    collectives = gloo_on_cuda(device)
+    shard = img.reshape(-1, 3)[:W * H // RANKS].contiguous()
+    gather_ms = collective_ms(lambda: mesh.all_gather(shard))
+    topo = topology.build_topology(scene)
+    _, (_, _, start, basis, target, _) = train_setup(scene, cam)
+    step = dict(mesh=mesh, grad_chunks=CHUNKS, edge_samples=EDGE_SAMPLES,
+                topology=topo)
+    step_s = []
+    for _ in range(2):                # a warm-up step, then the one kept
+        dist.barrier()
+        grads, loss, s = probe_grads(params, start, basis, target, **step)
+        step_s.append(s)
+    np.savez(os.path.join(work, f"grads{rank}.npz"),
+             **{k: v.cpu().numpy() for k, v in grads.items()})
+    # one chunk's all-reduce: its loss and the trainables' cotangents
+    flat = torch.zeros(1 + sum(v.numel() for v in grads.values()),
+                       device=device)
+    reduce_ms = collective_ms(lambda: mesh.all_reduce(flat))
+    print(json.dumps({"rank": rank, "frame_s": times[1],
+                      "warmup_frame_s": times[0], "step_s": step_s[1],
+                      "warmup_step_s": step_s[0], "loss": loss,
+                      "gather_ms": gather_ms, "reduce_ms": reduce_ms,
+                      "reduce_floats": flat.numel(), "launches": counts,
+                      "gloo_on_cuda": collectives}), flush=True)
+    dist.destroy_process_group()
+
+
+def collective_ms(fn, reps=5):
+    """Mean ms of a collective ``fn()`` over both ranks, after one
+    warm-up, to the card's end on this rank."""
+    fn()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def gloo_on_cuda(device):
+    """Which collectives the installed gloo takes CUDA tensors for: each
+    run once on 4 floats, held to its result → {name: "ok" or the
+    error}."""
+    x = torch.full((4,), float(dist.get_rank() + 1), device=device)
+    total = float(sum(range(1, dist.get_world_size() + 1)))
+
+    def all_gather():
+        out = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, x)
+        return float(torch.cat(out)[::4].sum()) == total
+
+    def all_gather_into_tensor():
+        out = x.new_empty(4 * dist.get_world_size())
+        dist.all_gather_into_tensor(out, x)
+        return float(out[::4].sum()) == total
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, async_op=True).wait()
+        return float(y[0]) == total
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, 0)
+        return float(y[0]) == 1.0
+
+    out = {}
+    for fn in (all_gather, all_gather_into_tensor, all_reduce, broadcast):
+        try:
+            out[fn.__name__] = "ok" if fn() else "wrong result"
+        except RuntimeError as exc:   # a backend refusing CUDA tensors
+            out[fn.__name__] = str(exc).splitlines()[0][:120]
+    return out
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_rank(rank, port, work):
+    """This script as rank ``rank`` of the two-rank group, its output in
+    ``work/rank<rank>.out`` and ``.err`` → the process."""
+    with open(os.path.join(work, f"rank{rank}.out"), "w") as out, \
+            open(os.path.join(work, f"rank{rank}.err"), "w") as err:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(rank),
+             "--port", str(port), "--work", work], stdout=out, stderr=err)
+
+
+def wait_ranks(procs, work):
+    """Wait for every rank; the first that fails (or the time limit) ends
+    the others → each rank's stdout. Raises with a failed rank's output."""
+    deadline = time.perf_counter() + SUBPROCESS_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("the two-rank group ran out of time")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def read(r, ext):
+        with open(os.path.join(work, f"rank{r}.{ext}")) as f:
+            return f.read()
+
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} failed ({p.returncode}):\n"
+                                 f"{read(r, 'out')[-3000:]}\n"
+                                 f"{read(r, 'err')[-3000:]}")
+    return [read(r, "out") for r in range(len(procs))]
+
+
+def two_rank_path(device, terrain, card):
+    """Two ranks of one group on the one card, run as two subprocesses of
+    this script: the gathered 1080p terrain frame bit-equal to the
+    single-process frame on both ranks, and the training step's gradient on
+    the mesh within the gradient gate of the single-process step over the
+    same slabs with the same edge samples and topology, and equal on both
+    ranks → text."""
+    work = os.path.join("build", "chip_smoke_ranks")
+    os.makedirs(work, exist_ok=True)
+    port = free_port()
+    procs = [start_rank(r, port, work) for r in range(RANKS)]
+    try:
+        # the single-process references while the ranks start
+        scene, cam = terrain
+        params = rt.RenderParams(**PARAMS)
+        with torch.no_grad():
+            want = render_frame(scene, rt.camera_basis(cam), params, 0).cpu()
+        topo = topology.build_topology(scene)
+        _, (_, _, start, basis, target, _) = train_setup(scene, cam)
+        step = dict(edge_samples=EDGE_SAMPLES, topology=topo)
+        # the mesh walks RANKS x CHUNKS slabs; the same slabs in one
+        # process hold the same share tiles (518,400 pixels is no whole
+        # number of 512-lane tiles, so CHUNKS slabs would draw otherwise)
+        ref, ref_loss, ref_s = probe_grads(
+            params, start, basis, target, grad_chunks=RANKS * CHUNKS, **step)
+        other, _, _ = probe_grads(params, start, basis, target,
+                                  grad_chunks=CHUNKS, **step)
+    finally:
+        outs = wait_ranks(procs, work)
+    lines = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    want_launches = launches(closest_hit=BOUNCES + 1)
+    for x in lines:
+        if x["launches"] != want_launches:
+            raise AssertionError(f"two ranks: rank {x['rank']}'s frame "
+                                 f"launched {x['launches']}, want "
+                                 f"{want_launches}")
+    grads = []
+    for r in range(RANKS):
+        frame = torch.from_numpy(np.load(os.path.join(work,
+                                                      f"frame{r}.npy")))
+        if not torch.equal(frame, want):
+            raise AssertionError(
+                f"two ranks: rank {r}'s frame differs from the single "
+                f"process's by {float((frame - want).abs().max())}")
+        with np.load(os.path.join(work, f"grads{r}.npz")) as z:
+            grads.append({k: torch.from_numpy(z[k]).to(device) for k in z})
+    worst, leaf, _ = grad_gate("two-rank training step", grads[0], ref)
+    apart = max(float((grads[0][k] - other[k]).abs().max())
+                / max(float(other[k].abs().max()), 1e-30) for k in other)
+    for k in grads[0]:
+        if not torch.equal(grads[0][k], grads[1][k]):
+            raise AssertionError(f"two ranks: {k}'s gradient differs "
+                                 f"between the ranks")
+    return (f"{RANKS} ranks (gloo, CUDA tensors, both on one {card}; two "
+            f"ranks sharing one card, not a scaling figure): {W}x{H} terrain "
+            f"frame bit-equal to the single process's on both ranks, "
+            f"{BOUNCES + 1} B1 launches on each rank's shard; frame "
+            + ", ".join(f"rank {x['rank']} {x['frame_s']:.4f} s (warm-up "
+                        f"{x['warmup_frame_s']:.3f})" for x in lines)
+            + f"; training step (grad_chunks={CHUNKS}, edge_samples="
+            f"{EDGE_SAMPLES}, topology) gradient vs the single process's "
+            f"over the same {RANKS * CHUNKS} slabs (grad_chunks="
+            f"{RANKS * CHUNKS}, {ref_s:.4f} s): worst {worst:.3g} of max "
+            f"|g| ({leaf}; gate {GRAD_PARITY}), equal on both ranks (vs "
+            f"grad_chunks={CHUNKS}, whose slabs hold other share tiles: "
+            f"{apart:.3g}, ungated); "
+            f"loss {lines[0]['loss']:.6g} vs {ref_loss:.6g}; step "
+            + ", ".join(f"rank {x['rank']} {x['step_s']:.4f} s (warm-up "
+                        f"{x['warmup_step_s']:.3f})" for x in lines)
+            + "; gather of a rank's 1080p shard "
+            + ", ".join(f"{x['gather_ms']:.3f}" for x in lines)
+            + f" ms, all-reduce of one chunk's {lines[0]['reduce_floats']} "
+            f"floats " + ", ".join(f"{x['reduce_ms']:.3f}" for x in lines)
+            + f" ms; gloo on CUDA tensors {lines[0]['gloo_on_cuda']} | {card}")
+
+
+def run_cli(*argvs):
+    """``python -m ray_tracer_tpu_torch argv`` for each argv in turn →
+    (the last one's stdout, seconds of each); raises where one fails."""
+    out, secs = None, []
+    for argv in argvs:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "ray_tracer_tpu_torch"]
+                           + argv, capture_output=True, text=True,
+                           timeout=SUBPROCESS_TIMEOUT)
+        secs.append(time.perf_counter() - t0)
+        if p.returncode != 0:
+            raise AssertionError(f"command line {argv[:3]} failed "
+                                 f"({p.returncode}):\n{p.stdout[-3000:]}\n"
+                                 f"{p.stderr[-3000:]}")
+        out = p.stdout
+    return out, secs
+
+
+def cli_image(argv):
+    """The image a ``render`` command line makes, computed here through the
+    command line's own parser and scene set-up."""
+    args = cli.make_parser().parse_args(["render"] + argv)
+    scene, cam, params = cli._build(args)
+    with torch.no_grad():
+        return render_progressive(scene, rt.camera_basis(
+            cam.replace(aspect=params.aspect)), params, FRAMES)
+
+
+def cli_path(paths, card):
+    """The command line in subprocesses, all started together (the resume
+    after its checkpoint): renders of room and of phase 11's terrain190k
+    OBJ (B4) and torus GLB (B1-tex), each PNG decoding to the image this
+    process makes from the same flags; 4 frames with --checkpoint, 4 more
+    with --resume, equal to the uninterrupted 8; a depth AOV; benchmark,
+    invert and info → text."""
+    os.makedirs(CLI_DIR, exist_ok=True)
+    out = {k: os.path.join(CLI_DIR, k) for k in (
+        "room.png", "terrain190k.png", "torus.png", "part.npy",
+        "resumed.npy", "depth.png", "ck.npz")}
+    full = ["--width", str(W), "--height", str(H), "--bounces", str(BOUNCES),
+            "--skybox", "--coherent"]
+    renders = {
+        "room.png": ["--scene", "room"] + full,
+        "terrain190k.png": ["--model", paths["terrain190k.obj"]] + full,
+        "torus.png": ["--model", paths["torus.glb"]] + full,
+    }
+    half = str(FRAMES // 2)
+    jobs = {k: (["render", "--frames", str(FRAMES)] + a + ["-o", out[k]],)
+            for k, a in renders.items()}
+    jobs["checkpoint, resume"] = (
+        ["render", "--frames", half, "--checkpoint", out["ck.npz"], "-o",
+         out["part.npy"]] + renders["room.png"],
+        ["render", "--frames", half, "--resume", out["ck.npz"], "-o",
+         out["resumed.npy"]] + renders["room.png"])
+    jobs["depth"] = (["render", "--aov", "depth", "-o", out["depth.png"]]
+                     + full,)
+    jobs["benchmark"] = (["benchmark", "--scene", "room", "--frames",
+                          str(FRAMES)] + full,)
+    jobs["invert"] = (["invert", "--scene", "metal", "--steps", "20",
+                       "--edge-samples", "64"] + full,)
+    jobs["info"] = (["info"],)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(run_cli, *a) for k, a in jobs.items()}
+        wanted = {k: cli_image(a) for k, a in renders.items()}
+        texts = {k: f.result() for k, f in futures.items()}
+    for k, img in wanted.items():
+        with open(out[k], "rb") as f:
+            png = decode_png(f.read())
+        if not np.array_equal(png, to_uint8(img)):
+            raise AssertionError(f"command line {k} is not the image of "
+                                 f"its flags")
+    room = wanted["room.png"].cpu().numpy()[::-1]   # as write_npy flips
+    if not np.array_equal(np.load(out["resumed.npy"]), room):
+        raise AssertionError("command line: --resume after --checkpoint is "
+                             "not the uninterrupted render")
+    with open(out["depth.png"], "rb") as f:
+        if decode_png(f.read()).shape != (H, W, 3):
+            raise AssertionError("command line depth AOV has the wrong shape")
+    bench = json.loads(texts["benchmark"][0].strip().splitlines()[-1])
+    inv = json.loads(texts["invert"][0].strip().splitlines()[-1])
+    info = json.loads(texts["info"][0])
+    name = torch.cuda.get_device_name(0)
+    if name not in info["devices"] or not info["default_device"].startswith(
+            "cuda"):
+        raise AssertionError(f"command line info: {info}")
+    if "recovered" not in inv or not math.isfinite(inv["final_loss"]):
+        raise AssertionError(f"command line invert: {inv}")
+    secs = ", ".join(f"{k} {' + '.join(f'{x:.1f}' for x in t[1])}"
+                     for k, t in texts.items())
+    return (f"room, terrain190k.obj, torus.glb {W}x{H} {FRAMES} frames: PNGs "
+            f"equal to the images of their flags; --checkpoint {half} + "
+            f"--resume {half} equal to the uninterrupted {FRAMES}; depth AOV "
+            f"PNG {W}x{H}; benchmark {bench['value'] / 1e6:.3f} M segments/s "
+            f"({bench['seconds']:.4f} s, min of 2); invert 20 steps "
+            f"recovered={inv['recovered']} (max albedo error "
+            f"{inv['max_albedo_error']:.4f}, {inv['seconds']} s); info names "
+            f"{name}; seconds of each command (all started together): "
+            f"{secs} | {card}")
+
+
+def viewer_path(device, card):
+    """The viewer's core (no figure) on the card at the main path's size:
+    VIEWER_FRAMES frames between VIEWER_KEYS (moves, scene switches 0-3,
+    bounce and rays-per-pixel keys) and a resize, the packings of each
+    scene switch counted; the figure on Agg where matplotlib is → text."""
+    scene, cam = rt.builtin_scene("metal", aspect=W / H, device=device)
+    core = viewer.ViewerCore(scene, cam, rt.RenderParams(**PARAMS),
+                             scene_id=3)
+    packs, frames = {}, 0
+    for key in VIEWER_KEYS:
+        core.key(key)
+        before = ch.scene_planes.packs
+        core.frame()
+        frames += 1
+        if key in "0123":
+            packs[key] = ch.scene_planes.packs - before
+    core.resize(*VIEWER_RESIZE)
+    while frames < VIEWER_FRAMES:
+        rgb, _ = core.frame()
+        frames += 1
+    if rgb.shape != VIEWER_RESIZE[::-1] + (3,):
+        raise AssertionError(f"viewer frame {rgb.shape} after the resize")
+    if set(packs.values()) != {1}:
+        raise AssertionError(f"viewer scene switches packed {packs} times")
+    try:
+        import matplotlib
+        matplotlib.use("Agg", force=True)
+        fig = viewer.Viewer(scene, cam, rt.RenderParams(**PARAMS),
+                            scene_id=3)
+        fig._on_key(types.SimpleNamespace(key="B"))
+        fig.run(max_frames=2)
+        figure = (f"the figure on Agg: 2 frames, bounces widget "
+                  f"{fig._widgets['bounces'].val} after B")
+    except ImportError:
+        figure = "matplotlib is not installed here: the figure not run"
+    return (f"{frames} frames ({W}x{H}, then {VIEWER_RESIZE[0]}x"
+            f"{VIEWER_RESIZE[1]}) after keys {''.join(VIEWER_KEYS)}: "
+            f"{core.clock.summary()}; packings per scene switch {packs}; "
+            f"{figure} | {card}")
+
+
+def pose_grads(scene, cam, params, origin, target):
+    """(loss, gradients) of a frame from ``camera_basis_tensor`` with
+    respect to the origin, the focus distance and the spheres' centres
+    (joint camera and scene calibration: the pose's gradient reaches the
+    rays through the winner rows of the closest-hit kernel, the centres'
+    through their backward, the scatter-add)."""
+    leaves = {
+        "origin": torch.tensor(origin, dtype=torch.float32,
+                               device=scene.device, requires_grad=True),
+        "focus_dist": torch.tensor(cam.focus_dist, device=scene.device,
+                                   requires_grad=True),
+        "sphere_center": scene.sphere_center.detach().clone()
+        .requires_grad_(True)}
+    basis = rt.camera_basis_tensor(leaves["origin"], cam.look_at, cam.vup,
+                                   cam.fov, cam.aspect, leaves["focus_dist"])
+    img = render_frame(dataclasses.replace(
+        scene, sphere_center=leaves["sphere_center"]), basis, params, 1)
+    loss = torch.mean((img - target) ** 2)
+    g = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, g))
+
+
+def recover_pose(scene, cam, params, steps=POSE_STEPS, offset=POSE_OFFSET):
+    """The reference test's camera calibration: Adam on the origin under
+    optax's cosine_decay_schedule(0.08, steps, alpha=0.02), each step
+    against the target re-rendered at its own frame index → (start error,
+    final error, seconds per step)."""
+    true = torch.tensor(cam.origin, dtype=torch.float32, device=scene.device)
+    origin = (true + torch.tensor(offset, device=scene.device)
+              ).requires_grad_(True)
+    start_err = float(torch.linalg.vector_norm(origin.detach() - true))
+    opt = torch.optim.Adam([origin], lr=0.08, betas=(0.9, 0.999), eps=1e-8)
+
+    def render_at(o, frame):
+        basis = rt.camera_basis_tensor(o, cam.look_at, cam.vup, cam.fov,
+                                       cam.aspect, cam.focus_dist)
+        return render_frame(scene, basis, params, frame)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        with torch.no_grad():
+            target = render_at(true, i)
+        loss = torch.mean((render_at(origin, i) - target) ** 2)
+        (g,) = torch.autograd.grad(loss, [origin])
+        cos = 0.5 * (1 + math.cos(math.pi * min(i, steps) / steps))
+        opt.param_groups[0]["lr"] = 0.08 * ((1 - 0.02) * cos + 0.02)
+        origin.grad = g
+        opt.step()
+    err = float(torch.linalg.vector_norm(origin.detach() - true))
+    return start_err, err, (time.perf_counter() - t0) / steps
+
+
+def pose_path(device, card):
+    """The gradient of a 1080p metal frame with respect to the pose (origin,
+    focus distance) and the spheres' centres through the closest-hit kernel
+    and the scatter-add against the plain path on the same tensors; then the reference test's pose recovery
+    (metal, POSE_STEPS steps at POSE_SIZE², bounces 1, the sky) on the
+    card, held to its bar → text."""
+    scene, cam = rt.builtin_scene("metal", aspect=W / H, device=device)
+    params = rt.RenderParams(**PARAMS)
+    start = np.asarray(cam.origin, np.float32) + np.asarray(POSE_OFFSET,
+                                                            np.float32)
+    with torch.no_grad():
+        target = render_frame(scene, rt.camera_basis(cam), params, 1)
+    reset_counts()
+    loss_k, g_k = pose_grads(scene, cam, params.replace(backend="cuda"),
+                             start, target)
+    counts = read_counts()
+    want = launches(closest_hit=BOUNCES + 1, scatter_rows=BOUNCES + 1)
+    if counts != want:
+        raise AssertionError(f"pose gradient: launches {counts}, want {want}")
+    loss_p, g_p = pose_grads(scene, cam, params.replace(backend="torch"),
+                             start, target)
+    worst, leaf, scales = grad_gate("pose gradient", g_k, g_p)
+    small, small_cam = rt.builtin_scene("metal", aspect=1.0, device=device)
+    rparams = rt.RenderParams(width=POSE_SIZE, height=POSE_SIZE, bounces=1,
+                              skybox=True)
+    start_err, err, step_s = recover_pose(small, small_cam, rparams)
+    if not err < POSE_BAR * start_err:
+        raise AssertionError(f"pose recovery: error {err} from {start_err} "
+                             f"(bar {POSE_BAR} x the start)")
+    return (f"gradient of a {W}x{H} metal frame (b{BOUNCES}) at the origin "
+            f"+ {POSE_OFFSET} with respect to the origin, the focus distance "
+            f"and the spheres' centres: kernels vs plain worst {worst:.3g} of "
+            f"max |g| "
+            f"({leaf}; max |g| {scales}), loss {loss_k:.6g} vs {loss_p:.6g}, "
+            f"launches {want['closest_hit']} B1 + {want['scatter_rows']} B2; "
+            f"recovery ({POSE_STEPS} steps at {POSE_SIZE}x{POSE_SIZE} b1): "
+            f"error {start_err:.4f} -> {err:.4f} ({err / start_err:.3f} of "
+            f"the start, bar {POSE_BAR}), {step_s * 1e3:.2f} ms/step | {card}")
+
+
+def metrics_path(terrain, card):
+    """A StageTimer stage around a 1080p terrain render reads no less than
+    the render's CUDA-event time → text."""
+    scene, cam = terrain
+    basis = rt.camera_basis(cam)
+    params = rt.RenderParams(**PARAMS)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    st = StageTimer()
+    with st.stage("render"), torch.no_grad():
+        start.record()
+        render_progressive(scene, basis, params, FRAMES)
+        stop.record()
+    torch.cuda.synchronize()
+    event_ms, stage_ms = start.elapsed_time(stop), st.totals["render"] * 1e3
+    if stage_ms < event_ms:
+        raise AssertionError(f"StageTimer read {stage_ms} ms for a render "
+                             f"of {event_ms} ms on the card")
+    return (f"StageTimer stage {stage_ms:.3f} ms >= CUDA events "
+            f"{event_ms:.3f} ms ({FRAMES} frames {W}x{H}) | {card}")
+
+
+def phase12_parallel_and_shell(device, scenes, paths, card):
+    """Multi-device rendering and training, the command line, the viewer,
+    the camera pose and the metrics (module docstring)."""
+    print("phase 12 one rank: " + one_rank_path(device, scenes, card),
+          flush=True)
+    torch.cuda.empty_cache()
+    print("phase 12 two ranks: " + two_rank_path(device, scenes["terrain"],
+                                                 card), flush=True)
+    torch.cuda.empty_cache()
+    print("phase 12 command line: " + cli_path(paths, card), flush=True)
+    print("phase 12 viewer: " + viewer_path(device, card), flush=True)
+    print("phase 12 camera pose: " + pose_path(device, card), flush=True)
+    print("phase 12 metrics: " + metrics_path(scenes["terrain"], card),
+          flush=True)
+    dist.destroy_process_group()
 
 
 def main(argv):
@@ -3296,7 +3891,14 @@ def main(argv):
                     help="also measure where a main-path frame's time goes")
     ap.add_argument("--out", metavar="DIR",
                     help="write the main-path image and profiler tables here")
+    # phase 12 runs this script as one rank of its two-rank group
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank is not None:
+        rank_worker(args.rank, args.port, args.work, torch.device("cuda", 0))
+        return
     t_start = time.perf_counter()
     card = phase0_device()
     if args.out:
@@ -3364,9 +3966,14 @@ def main(argv):
     torch.cuda.empty_cache()
     run("10", phase10_image_extras, device, terrain, terrain_nee,
         terrain_tex, large, terrain_rate, card)
-    del large, terrain_tex, terrain_nee
+    del terrain_tex
     torch.cuda.empty_cache()
-    run("11", phase11_recovery, device, terrain, card, phase5_s)
+    paths = run("11", phase11_recovery, device, terrain, card, phase5_s)
+    torch.cuda.empty_cache()
+    run("12", phase12_parallel_and_shell, device,
+        {"terrain": terrain, "terrain190k": large,
+         "terrain_nee": terrain_nee}, paths, card)
+    del large, terrain_nee
     print(f"seconds per phase: {secs}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("max_abs_err", "mismatches", "ms", "plain_ms", "plain_rays",

@@ -15,7 +15,11 @@ per-segment rematerialization (``remat``), and geometry recovery:
 edge-sampled boundary gradients (``grad.edges``), mesh connectivity and
 vertex fields (``grad.topology``), the per-vertex recovery loop
 (``tools.invert_vertices``) and the OBJ / glTF / GLB loaders (``io``,
-``models``). Four hand-written CUDA
+``models``), multi-device rendering and training on ``torch.distributed``
+(``parallel``, ``grad.make_train_step(mesh=)``), the differentiable camera
+basis (``camera_basis_tensor``), and the app shell: the command line
+(``python -m ray_tracer_tpu_torch``), the viewer, checkpoints and metrics
+(``utils``). Four hand-written CUDA
 kernels, built with nvcc at first use, carry them: the closest-hit search
 (``ops/closest_hit.py``, ``csrc/closest_hit.cu``), its backward, the
 scatter-add of the winner rows' cotangents (``ops/scatter_rows.py``,
@@ -26,7 +30,9 @@ more than 24,576 padded triangles (``ops/blocked_hit.py``,
 ``csrc/blocked_hit.cu``), as the reference's kernels split them.
 
 Entry points run on the card: the scene builders default to
-``device="cuda"``, and a CPU caller passes ``device="cpu"``.
+``device="cuda"``, and a CPU caller passes ``device="cpu"``. The command
+line runs on the CPU where ``RTT_PLATFORM=cpu`` is set (the reference's
+switch), and the viewer on its scene's device.
 
 Quick start:
     >>> import ray_tracer_tpu_torch as rt
@@ -39,7 +45,8 @@ plain PyTorch oracle for a scene on the CPU.
 """
 
 from . import grad, io, lights, models
-from .camera import Camera, CameraBasis, camera_basis, camera_rays
+from .camera import (Camera, CameraBasis, CameraController, camera_basis,
+                     camera_basis_tensor, camera_rays, update_camera)
 from .denoise import denoise, denoise_render
 from .io import MeshData, load_glb, load_gltf, load_meshes, load_model, load_obj
 from .ops.intersect import occluded
@@ -63,7 +70,8 @@ from .utils.config import RenderParams
 __version__ = "0.1.0"
 
 __all__ = [
-    "Camera", "CameraBasis", "camera_basis", "camera_rays",
+    "Camera", "CameraBasis", "CameraController", "camera_basis",
+    "camera_basis_tensor", "camera_rays", "update_camera",
     "Renderer", "accumulate", "render", "render_adaptive", "render_aov",
     "render_frame", "render_pixels", "render_progressive", "trace",
     "denoise",

@@ -15,8 +15,11 @@ Differences from the reference, all in how state is held:
   * ``opt_state`` is the ``torch.optim`` optimizer itself;
   * nothing is compiled: ``step_fn`` runs eagerly.
 
-Not ported yet, raising ``NotImplementedError``: the device mesh
-(``ROADMAP.md`` A13).
+Distributed (``mesh``, a ``parallel.Mesh``): each rank renders its own
+pixels of the frame, and the gradients of the replicated scene are summed
+over the mesh's ranks with an all-reduce, where the reference's
+``shard_map`` transpose inserts a psum. Every rank holds the same scene
+and takes the same optimizer step.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..camera import CameraBasis
+from ..parallel.shard import _padded_ids
 from ..renderer import _blocked_order, render_frame, render_pixels
 from ..scene import Scene
 from ..utils.config import RenderParams
@@ -35,12 +39,6 @@ from ..utils.config import RenderParams
 # Continuous scene leaves that make sense to optimize.
 DEFAULT_TRAINABLE = ("sphere_albedo", "sphere_center", "sphere_radius",
                      "tri_albedo", "tri_v0", "tri_v1", "tri_v2")
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP.md A13)")
 
 
 def split_scene(scene: Scene, fields: Sequence[str] = DEFAULT_TRAINABLE
@@ -54,13 +52,66 @@ def merge_scene(scene: Scene, trainable: Dict[str, torch.Tensor]) -> Scene:
     return dataclasses.replace(scene, **trainable)
 
 
+class _Replicated(torch.autograd.Function):
+    """Identity on the replicated trainable leaves whose backward sums
+    their gradients over the mesh in one all-reduce: the transpose of a
+    replicated input (the reference's psum). One node for all leaves, so
+    every rank makes the same single collective per backward."""
+
+    @staticmethod
+    def forward(ctx, mesh, *leaves):
+        ctx.mesh = mesh
+        return tuple(v.view_as(v) for v in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        ctx.mesh.all_reduce(flat)
+        parts = flat.split([g.numel() for g in grads])
+        return (None,) + tuple(p.view_as(g) for p, g in zip(parts, grads))
+
+
+class _SumOverMesh(torch.autograd.Function):
+    """The mesh's sum of each rank's loss; its gradient passes through to
+    each rank's own term."""
+
+    @staticmethod
+    def forward(ctx, loss, mesh):
+        total = loss.clone()
+        mesh.all_reduce(total)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def image_mse(trainable, scene: Scene, basis: CameraBasis,
               params: RenderParams, frame_index, target, mesh=None):
-    """Mean-squared pixel loss of a 1-frame render against ``target``."""
-    _no_mesh(mesh)
-    img = render_frame(merge_scene(scene, trainable), basis, params,
-                       int(frame_index))
-    return torch.mean((img - target) ** 2)
+    """Mean-squared pixel loss of a 1-frame render against ``target``.
+
+    With ``mesh`` each rank renders its shard of the pixels (as
+    ``parallel.render_frame_distributed`` splits them) and takes their
+    squared error over the whole frame's denominator; the loss is the sum
+    over the mesh, and the gradient of any trainable leaf is the mesh's
+    sum of each rank's, on every rank."""
+    if mesh is None:
+        img = render_frame(merge_scene(scene, trainable), basis, params,
+                           int(frame_index))
+        return torch.mean((img - target) ** 2)
+    names = list(trainable)
+    shared = dict(zip(names, _Replicated.apply(
+        mesh, *(trainable[k] for k in names))))
+    n = params.width * params.height
+    ids, _, _ = _padded_ids(params, mesh.size, scene)
+    per = ids.shape[0] // mesh.size
+    lo = mesh.rank * per
+    mine = ids[lo:lo + per]
+    rad = render_pixels(merge_scene(scene, shared), basis.to(scene.device),
+                        params, int(frame_index), mine)
+    real = (torch.arange(lo, lo + per, device=mine.device) < n)[:, None]
+    err = torch.where(real, (rad - target.reshape(n, 3)[mine]) ** 2, 0.0)
+    return _SumOverMesh.apply(torch.sum(err) / float(n * 3), mesh)
 
 
 def _chunked_inputs(params, target, chunks: int):
@@ -86,40 +137,69 @@ def _chunked_inputs(params, target, chunks: int):
     return ids, tgt, wts, float(R * 3)
 
 
+def _chunk_scan(trainable, render_pixels_fn, ids, tgt, wts, denom,
+                reduce_fn=None):
+    """Forward and backward per pixel chunk (``ids[c]``), the chunks'
+    losses and cotangents summed: only one chunk's graph is alive at a
+    time.
+
+    ``reduce_fn(flat)`` (optional) is called on each chunk's loss and
+    cotangents, flattened into one tensor, as soon as that chunk's
+    backward ends, and returns a handle whose ``wait()`` completes a
+    reduction of ``flat`` in place. The sharded path passes an
+    asynchronous all-reduce here, so chunk k's collective runs while chunk
+    k+1 renders and differentiates; the handles are waited on at the end.
+    The sum is linear, so this equals reducing the total, up to f32
+    summation order."""
+    names = list(trainable)
+    leaves = {k: trainable[k].detach().requires_grad_(True) for k in names}
+    pending = []
+    for c in range(ids.shape[0]):
+        rad = render_pixels_fn(leaves, ids[c])
+        loss_c = torch.sum(wts[c] * (rad - tgt[c]) ** 2) / denom
+        g = torch.autograd.grad(loss_c, [leaves[k] for k in names],
+                                allow_unused=True, materialize_grads=True)
+        flat = torch.cat([loss_c.detach().reshape(1)]
+                         + [gk.reshape(-1) for gk in g])
+        pending.append((flat, None if reduce_fn is None else reduce_fn(flat)))
+    total = torch.zeros_like(pending[0][0])
+    for flat, work in pending:
+        if work is not None:
+            work.wait()
+        total = total + flat
+    parts = total[1:].split([leaves[k].numel() for k in names])
+    return total[0], {k: p.view_as(leaves[k]) for k, p in zip(names, parts)}
+
+
 def chunked_mse_value_and_grad(trainable, render_pixels_fn, params,
                                target, chunks: int):
     """(loss, grads) of ``mean((render - target)**2)`` accumulated over
-    sequential pixel chunks: forward and backward run per chunk with
-    ``torch.autograd.grad`` and the cotangents are summed, so only one
-    chunk's graph is alive at a time. Equal to the whole-frame gradient up
-    to f32 summation order (each pixel's radiance depends only on its own
-    pixel id).
+    sequential pixel chunks (``_chunk_scan``): bounds the backward's
+    memory by ~1/chunks. Equal to the whole-frame gradient up to f32
+    summation order (each pixel's radiance depends only on its own pixel
+    id).
 
     ``render_pixels_fn(trainable, pixel_ids) -> (N, 3)`` radiance.
     """
     ids, tgt, wts, denom = _chunked_inputs(params, target, chunks)
-    names = list(trainable)
-    leaves = {k: trainable[k].detach().requires_grad_(True) for k in names}
-    loss = torch.zeros((), dtype=torch.float32, device=target.device)
-    grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
-    for c in range(chunks):
-        rad = render_pixels_fn(leaves, ids[c])
-        loss_c = torch.sum(wts[c] * (rad - tgt[c]) ** 2) / denom
-        g = torch.autograd.grad(loss_c, [leaves[k] for k in names],
-                                allow_unused=True)
-        loss = loss + loss_c.detach()
-        for k, gk in zip(names, g):
-            if gk is not None:
-                grads[k] = grads[k] + gk
-    return loss, grads
+    return _chunk_scan(trainable, render_pixels_fn, ids, tgt, wts, denom)
 
 
 def sharded_chunked_mse_value_and_grad(trainable, render_pixels_fn, params,
                                        target, chunks: int, mesh):
-    """The multi-device chunked gradient: not ported yet."""
-    raise NotImplementedError(
-        "sharded_chunked_mse_value_and_grad: a device mesh is not ported "
-        "yet (ROADMAP.md A13)")
+    """The chunked gradient with the chunks sharded over the mesh: the
+    frame is split into ``mesh.size x chunks`` slabs in the blocked pixel
+    order, each rank walks its own ``chunks`` slabs, and each chunk's loss
+    and cotangents are all-reduced asynchronously as soon as its backward
+    ends (``_chunk_scan``), overlapping the next chunk. Every rank returns
+    the whole frame's (loss, grads)."""
+    ids, tgt, wts, denom = _chunked_inputs(params, target,
+                                           mesh.size * chunks)
+    mine = slice(mesh.rank * chunks, (mesh.rank + 1) * chunks)
+    return _chunk_scan(trainable, render_pixels_fn, ids[mine], tgt[mine],
+                       wts[mine], denom,
+                       reduce_fn=lambda flat: mesh.all_reduce(
+                           flat, async_op=True))
 
 
 def _adam(params):
@@ -140,9 +220,13 @@ def edge_generator(frame_index, device) -> torch.Generator:
 
 
 def _add_boundary_gradients(grads, full: Scene, basis, params, target,
-                            frame_index, edge_samples, topology):
+                            frame_index, edge_samples, topology, mesh=None):
     """``grads`` plus the edge-sampled boundary gradients of the MSE at
-    ``full`` (the current scene), on the keys both have."""
+    ``full`` (the current scene), on the keys both have. With ``mesh``
+    every rank draws the same samples and the estimates are averaged over
+    the mesh, so every rank adds the same gradient: the estimator's
+    ``index_add_`` sums in no fixed order on a CUDA device, and ranks
+    whose steps differed by its rounding would drift apart."""
     from .edges import boundary_gradients
     with torch.no_grad():
         img = render_frame(full, basis, params, int(frame_index))
@@ -151,6 +235,13 @@ def _add_boundary_gradients(grads, full: Scene, basis, params, target,
                             edge_generator(frame_index, full.device),
                             n_tri_samples=edge_samples,
                             n_sph_samples=edge_samples, topology=topology)
+    if mesh is not None:
+        keys = list(bg)
+        flat = torch.cat([bg[k].reshape(-1) for k in keys])
+        mesh.all_reduce(flat)
+        flat = flat / mesh.size
+        bg = dict(zip(keys, (p.view_as(bg[k]) for p, k in zip(
+            flat.split([bg[k].numel() for k in keys]), keys))))
     return {k: v + bg[k] if k in bg else v for k, v in grads.items()}
 
 
@@ -178,6 +269,14 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
     (``chunked_mse_value_and_grad``), for frames whose whole-frame backward
     does not fit in device memory.
 
+    With ``mesh`` every rank of the mesh calls ``step_fn`` with its own
+    replica of the scene: the interior gradient is the mesh's
+    (``image_mse(mesh=)``, or ``sharded_chunked_mse_value_and_grad`` with
+    ``grad_chunks > 1``: each rank walks ``grad_chunks`` chunks of its
+    shard), and the boundary gradient is computed whole on every rank from
+    the same generator seed and averaged over the mesh, so every rank adds
+    the same one and takes the same step.
+
     Returns (init_fn, step_fn):
       init_fn(scene, fields) -> (trainable, opt_state)
       step_fn(trainable, opt_state, scene, basis, target, frame_index)
@@ -185,7 +284,6 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
     ``trainable``'s tensors are the optimizer's parameters: ``step_fn``
     updates them in place and returns the same dict.
     """
-    _no_mesh(mesh)
     make_optimizer = optimizer or _adam
 
     def init_fn(scene: Scene, fields: Sequence[str] = DEFAULT_TRAINABLE):
@@ -201,16 +299,22 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
             raise ValueError("trainable must hold the optimizer's own "
                              "parameters (made by init_fn)")
         if grad_chunks > 1:
-            def rp(tr, ids):
-                return render_pixels(merge_scene(scene, tr), basis, params,
-                                     int(frame_index), ids)
+            on_device = basis.to(scene.device)
 
-            loss, grads = chunked_mse_value_and_grad(
-                trainable, rp, params, target, grad_chunks)
+            def rp(tr, ids):
+                return render_pixels(merge_scene(scene, tr), on_device,
+                                     params, int(frame_index), ids)
+
+            if mesh is None:
+                loss, grads = chunked_mse_value_and_grad(
+                    trainable, rp, params, target, grad_chunks)
+            else:
+                loss, grads = sharded_chunked_mse_value_and_grad(
+                    trainable, rp, params, target, grad_chunks, mesh)
         else:
             names = list(trainable)
             loss = image_mse(trainable, scene, basis, params, frame_index,
-                             target)
+                             target, mesh=mesh)
             g = torch.autograd.grad(loss, [trainable[k] for k in names],
                                     allow_unused=True)
             grads = {k: (torch.zeros_like(trainable[k]) if gk is None
@@ -219,7 +323,7 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
         if edge_samples:
             grads = _add_boundary_gradients(
                 grads, merge_scene(scene, trainable), basis, params, target,
-                frame_index, edge_samples, topology)
+                frame_index, edge_samples, topology, mesh)
         for k, p in trainable.items():
             p.grad = grads[k]
         opt_state.step()

@@ -1,0 +1,238 @@
+"""Port parity of the camera additions: the fly controller, the
+differentiable basis and camera-pose gradients and recovery."""
+
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import ray_tracer_tpu as jrt
+import ray_tracer_tpu_torch as trt
+from ray_tracer_tpu.camera import camera_basis_jnp
+from ray_tracer_tpu.renderer import render_frame as j_render_frame
+from ray_tracer_tpu_torch.renderer import render_frame
+
+from test_torch_common import one_thread, to_port  # noqa: F401
+
+BASIS_FIELDS = ("origin", "lower_left", "horizontal", "vertical", "u", "v",
+                "w", "lens_radius")
+POSE_PARAMS = dict(width=16, height=16, bounces=1, skybox=True)
+POSE_FRAME = 1
+POSE_OFFSET = (0.25, -0.15, 0.2)   # the reference test's start offset
+GRAD_TOL = 3e-4   # of max |g|, test_torch_grad.py's bound against jax.grad
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+
+def _controller_pair(rng):
+    """The same random controller in both packages."""
+    kw = dict(amount_left=rng.random() * 5, amount_right=rng.random() * 5,
+              amount_forward=rng.random() * 5,
+              amount_backward=rng.random() * 5,
+              amount_up=rng.random() * 5, amount_down=rng.random() * 5,
+              rotate_horizontal=rng.normal() * 3,
+              rotate_vertical=rng.normal() * 3, scroll=rng.normal() * 40)
+    return jrt.CameraController(**kw), trt.CameraController(**kw)
+
+
+def test_update_camera_matches_reference():
+    """20 random cameras and controllers: the same moved camera and the
+    same controller state after the step."""
+    rng = np.random.default_rng(0)
+    for _ in range(20):
+        origin = tuple(rng.normal(size=3) * 3)
+        look = tuple(np.asarray(origin) + rng.normal(size=3))
+        jc, tc = _controller_pair(rng)
+        dt = float(rng.random() * 0.2)
+        a = jrt.update_camera(jrt.Camera(origin, look), jc, dt)
+        b = trt.update_camera(trt.Camera(origin, look), tc, dt)
+        assert a.origin == b.origin and a.look_at == b.look_at
+        assert vars(jc) == vars(tc)
+
+
+def test_controller_keys_and_pitch_clamp_match_reference():
+    for key in ("w", "S", "a", "right", "space", "shift", "x"):
+        jc, tc = jrt.CameraController(), trt.CameraController()
+        assert jc.press(key) == tc.press(key)
+        assert vars(jc) == vars(tc)
+    jc, tc = jrt.CameraController(), trt.CameraController()
+    jc.scroll_line_delta(2.0), tc.scroll_line_delta(2.0)
+    assert tc.scroll == jc.scroll == -20000.0
+    for dy in (-1e6, 1e6):
+        cam = (0.0, 0.0, 0.0), (0.0, 0.0, 1.0)
+        jc, tc = jrt.CameraController(), trt.CameraController()
+        jc.mouse(0.0, dy), tc.mouse(0.0, dy)
+        a = jrt.update_camera(jrt.Camera(*cam), jc, 1.0)
+        b = trt.update_camera(trt.Camera(*cam), tc, 1.0)
+        assert a.look_at == b.look_at
+        d = np.asarray(b.look_at) - np.asarray(b.origin)
+        pitch = math.asin(d[1] / np.linalg.norm(d))
+        assert abs(pitch) == pytest.approx(math.pi / 2 - 1e-4)
+
+
+def test_basis_tensor_matches_reference():
+    """camera_basis_tensor against the reference's camera_basis_jnp on the
+    same pose, and the host basis it twins."""
+    for cam in (jrt.Camera(origin=(1.0, 2.0, 3.0), look_at=(0.0, 0.5, -1.0),
+                           fov=35.0, aspect=1.5, focus_dist=2.5,
+                           aperture=0.2),
+                jrt.Camera(origin=(0.0, 1.5, 6.0), look_at=(0.0, -0.8, 0.0))):
+        want = camera_basis_jnp(cam.origin, cam.look_at, cam.vup, cam.fov,
+                                cam.aspect, cam.focus_dist, cam.aperture)
+        got = trt.camera_basis_tensor(
+            torch.tensor(cam.origin), torch.tensor(cam.look_at), cam.vup,
+            cam.fov, cam.aspect, torch.tensor(cam.focus_dist), cam.aperture)
+        host = trt.camera_basis(trt.Camera(**vars(cam)))
+        for f in BASIS_FIELDS:
+            g = getattr(got, f)
+            assert g.dtype == torch.float32, f
+            np.testing.assert_allclose(g.numpy(), np.asarray(getattr(want, f)),
+                                       rtol=1e-6, atol=1e-7, err_msg=f)
+            np.testing.assert_allclose(g.numpy(), getattr(host, f).numpy(),
+                                       rtol=1e-6, atol=1e-7, err_msg=f)
+
+
+def _pose_loss_jax(js, cam, params, origin, target):
+    basis = camera_basis_jnp(origin, cam.look_at, cam.vup, cam.fov,
+                             cam.aspect, cam.focus_dist)
+    img = j_render_frame(js, basis, params, jnp.int32(POSE_FRAME))
+    return jnp.mean((img - target) ** 2)
+
+
+def _pose_grad_torch(ts, cam, params, origin, target, extra=()):
+    """(loss, d loss / d origin, d loss / d (focus_dist, *extra)) of the
+    port's frame from camera_basis_tensor; ``extra`` are leaves of ``ts``
+    that require grad."""
+    o = torch.tensor(origin, dtype=torch.float32, device=ts.device,
+                     requires_grad=True)
+    f = torch.tensor(cam.focus_dist, device=ts.device, requires_grad=True)
+    basis = trt.camera_basis_tensor(o, cam.look_at, cam.vup, cam.fov,
+                                    cam.aspect, f)
+    loss = torch.mean((render_frame(ts, basis, params, POSE_FRAME)
+                       - target) ** 2)
+    g_o, *g_rest = torch.autograd.grad(loss, [o, f, *extra])
+    return float(loss.detach()), g_o, g_rest
+
+
+def test_pose_gradient_matches_reference():
+    """d MSE / d origin through the differentiable basis and the frame,
+    against jax.grad of the reference's, at a start offset of the pose."""
+    js, cam = jrt.builtin_scene("metal", aspect=1.0)
+    ts = to_port(js)
+    jp = jrt.RenderParams(backend="jnp", **POSE_PARAMS)
+    target = j_render_frame(js, jrt.camera_basis(cam), jp,
+                            jnp.int32(POSE_FRAME))
+    start = np.asarray(cam.origin, np.float32) + np.asarray(POSE_OFFSET,
+                                                            np.float32)
+    loss, g = jax.value_and_grad(
+        lambda o: _pose_loss_jax(js, cam, jp, o, target))(jnp.asarray(start))
+    t_loss, g_o, _ = _pose_grad_torch(
+        ts, trt.Camera(**vars(cam)), trt.RenderParams(**POSE_PARAMS), start,
+        torch.from_numpy(np.array(target)))
+    assert t_loss == pytest.approx(float(loss), rel=1e-5)
+    g = np.asarray(g)
+    assert np.abs(g).max() > 0
+    assert np.abs(g_o.numpy() - g).max() <= GRAD_TOL * np.abs(g).max()
+
+
+def recover_pose(scene, cam, params, steps=60, offset=POSE_OFFSET):
+    """The reference test's camera calibration on the port: Adam on the
+    origin under a cosine-decayed rate (0.08 over ``steps``, alpha 0.02,
+    optax's schedule), each step against the target re-rendered at its
+    own frame index (common random numbers). Returns (start error, final
+    error, last loss)."""
+    true = torch.tensor(cam.origin, dtype=torch.float32, device=scene.device)
+    origin = (true + torch.tensor(offset, device=scene.device)
+              ).requires_grad_(True)
+    start_err = float(torch.linalg.vector_norm(origin.detach() - true))
+    opt = torch.optim.Adam([origin], lr=0.08, betas=(0.9, 0.999), eps=1e-8)
+
+    def render_at(o, frame):
+        basis = trt.camera_basis_tensor(o, cam.look_at, cam.vup, cam.fov,
+                                        cam.aspect, cam.focus_dist)
+        return render_frame(scene, basis, params, frame)
+
+    for i in range(steps):
+        with torch.no_grad():
+            target = render_at(true, i)
+        loss = torch.mean((render_at(origin, i) - target) ** 2)
+        (g,) = torch.autograd.grad(loss, [origin])
+        cos = 0.5 * (1 + math.cos(math.pi * min(i, steps) / steps))
+        opt.param_groups[0]["lr"] = 0.08 * ((1 - 0.02) * cos + 0.02)
+        origin.grad = g
+        opt.step()
+    err = float(torch.linalg.vector_norm(origin.detach() - true))
+    return start_err, err, float(loss.detach())
+
+
+def test_adam_schedule_matches_optax():
+    """recover_pose's learning-rate schedule is optax's
+    cosine_decay_schedule(0.08, 60, alpha=0.02)."""
+    sched = optax.cosine_decay_schedule(0.08, 60, alpha=0.02)
+    for i in (0, 1, 30, 59):
+        cos = 0.5 * (1 + math.cos(math.pi * i / 60))
+        assert 0.08 * (0.98 * cos + 0.02) == pytest.approx(float(sched(i)),
+                                                           rel=1e-6)
+
+
+def test_pose_recovery():
+    """The reference's pose-recovery test on the port, held to its bar:
+    the final error below a quarter of the start error.
+
+    At 64x64, the size chip_smoke.py runs it at, not the reference test's
+    32x32. At 32x32 the path is chaotic in both packages: their gradients
+    at the start pose differ by 25% of max |g| through one pixel whose
+    value differs by 8.5e-4 (a last-bit difference that the sun lobe's
+    pow(., 500) amplifies; the bases are bit-equal), their paths split
+    from there, and the reference ends at 0.243 of the start error, the
+    port at 0.285. From two other start offsets at 32x32 they end at
+    0.210 / 0.211 and 0.718 / 0.745; at 48x48 at 0.133 / 0.174, at 64x64
+    at 0.094 / 0.025 (reference / port)."""
+    scene, cam = trt.builtin_scene("metal", aspect=1.0, device="cpu")
+    params = trt.RenderParams(width=64, height=64, bounces=1, skybox=True)
+    start, err, loss = recover_pose(scene, cam, params)
+    assert err < 0.25 * start, (err, start, loss)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; the test skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_pose_gradient_through_the_kernels(cuda_device):
+    """The gradient with respect to the pose and the spheres' centres
+    through the closest-hit kernel (the pose's, through the winner rows)
+    and its scatter-add backward (the centres') against the plain path on
+    the same tensors."""
+    from ray_tracer_tpu_torch.ops import closest_hit, scatter_rows
+    scene, cam = trt.builtin_scene("metal", aspect=1.0, device=cuda_device)
+    start = np.asarray(cam.origin, np.float32) + np.asarray(POSE_OFFSET,
+                                                            np.float32)
+    target = render_frame(scene, trt.camera_basis(cam),
+                          trt.RenderParams(**POSE_PARAMS), POSE_FRAME)
+    out = {}
+    for b in ("cuda", "torch"):
+        closest_hit.nearest_hit_attrs.launches = 0
+        scatter_rows.scatter_rows_soa.launches = 0
+        centre = scene.sphere_center.clone().requires_grad_(True)
+        loss, g_o, g_f = _pose_grad_torch(
+            dataclasses.replace(scene, sphere_center=centre), cam,
+            trt.RenderParams(backend=b, **POSE_PARAMS), start, target,
+            extra=[centre])
+        out[b] = (loss, g_o, g_f[0], g_f[1])
+        launched = (closest_hit.nearest_hit_attrs.launches,
+                    scatter_rows.scatter_rows_soa.launches)
+        assert launched == ((2, 2) if b == "cuda" else (0, 0)), (b, launched)
+    (l_k, *g_k), (l_p, *g_p) = out["cuda"], out["torch"]
+    assert l_k == pytest.approx(l_p, rel=1e-6)
+    for a, b in zip(g_k, g_p):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -140,24 +140,6 @@ def test_train_step_grad_chunks_takes_the_same_step():
     torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
-def test_unported_training_options_raise(kw):
-    params = trt.RenderParams(width=8, height=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        tinv.make_train_step(params, **kw)
-
-
-def test_sharded_gradient_and_mesh_loss_raise():
-    scene, cam = trt.scene_metal(device="cpu")
-    params = trt.RenderParams(width=8, height=8)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tinv.sharded_chunked_mse_value_and_grad({}, None, params, None, 2,
-                                                object())
-    with pytest.raises(NotImplementedError, match="A13"):
-        tinv.image_mse({}, scene, trt.camera_basis(cam), params, 0,
-                       torch.zeros((8, 8, 3)), mesh=object())
-
-
 def test_step_refuses_tensors_the_optimizer_does_not_own():
     scene, basis, params = _one_sphere(trt)
     init_fn, step_fn = tinv.make_train_step(params)

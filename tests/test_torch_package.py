@@ -40,6 +40,11 @@ def test_import_leaves_jax_out():
             "import ray_tracer_tpu_torch.models\n"
             "import ray_tracer_tpu_torch.utils.native\n"
             "import ray_tracer_tpu_torch.tools.invert_vertices\n"
+            "import ray_tracer_tpu_torch.parallel\n"
+            "import ray_tracer_tpu_torch.parallel.distributed\n"
+            "import ray_tracer_tpu_torch.cli, ray_tracer_tpu_torch.viewer\n"
+            "import ray_tracer_tpu_torch.utils.checkpoint\n"
+            "import ray_tracer_tpu_torch.utils.metrics\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tracer_tpu')]\n"
             "assert not bad, bad\n"
@@ -168,7 +173,8 @@ def test_image_io_matches_reference(tmp_path):
 def test_public_names_match_reference():
     import ray_tracer_tpu.io as j_io
     ported = set(trt.__all__) - {"scene_from_numpy", "io", "grad", "lights",
-                                 "models", "occluded"} - set(j_io.__all__)
+                                 "models", "occluded",
+                                 "camera_basis_tensor"} - set(j_io.__all__)
     assert ported <= set(jrt.__all__)
     assert trt.io.__all__ == j_io.__all__
     assert trt.models.__all__ == ["scene", "asset", "BUILTIN_SCENES",
