@@ -16,10 +16,10 @@ Differences from the reference:
   * ``--backend`` takes the port's values (auto|torch|cuda);
   * times wait for the device before the clock is read;
   * ``render --aov`` writes its PNG with the port's codec (no Pillow);
-  * ``--resilient`` keeps one host-side safe point per chunk of 8 frames
-    of a batch render, with no retry (a local card has no relay to retry,
-    ROADMAP D4); with ``--checkpoint`` the checkpoint is written at each
-    safe point.
+  * ``--resilient`` keeps one host-side safe point per chunk of frames
+    (8 frames of a batch render, 16 of an adaptive one), with no retry (a
+    local card has no relay to retry, ROADMAP D4); with ``--checkpoint``
+    a batch render writes the checkpoint at each safe point.
 """
 
 from __future__ import annotations
@@ -176,9 +176,8 @@ def _render_batch(r: Renderer, args, basis):
     while done < args.frames:
         k = min(SAFE_POINT_FRAMES, args.frames - done)
         img = render_progressive(scene, basis, params, k, start_frame=done,
-                                 image0=img)
+                                 image0=img, resilient=True)
         done += k
-        img = img.cpu().to(scene.device)      # the host-side safe point
         r._image, r.frames = img, done - 1
         if args.checkpoint:
             save_renderer(args.checkpoint, r)
@@ -211,7 +210,8 @@ def cmd_render(args):
         if args.adaptive and fresh:
             from .renderer import render_adaptive
             img, used = render_adaptive(scene, basis, params, args.frames,
-                                        target_rel_std=args.adaptive)
+                                        target_rel_std=args.adaptive,
+                                        resilient=args.resilient)
             r._image, r.frames = img, used - 1
             print(f"adaptive: converged after {used}/{args.frames} frames",
                   file=sys.stderr)
@@ -220,8 +220,9 @@ def cmd_render(args):
         else:
             if args.resilient:
                 logging.getLogger("ray_tracer_tpu_torch.cli").warning(
-                    "--resilient only keeps safe points on the batch path "
-                    "(frames > 1, fresh accumulation, accumulate on)")
+                    "--resilient only keeps safe points where frames go in "
+                    "chunks: the batch and adaptive paths (frames > 1, "
+                    "fresh accumulation, accumulate on)")
             for _ in range(args.frames):
                 img = r.step()
         if args.denoise:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .ops.closest_hit import plane_scope
 from .utils.bounds import maximum
 
 # B3-spline coefficients (1/16, 1/4, 3/8, 1/4, 1/16)
@@ -77,6 +78,7 @@ def denoise(img, normal, depth, iterations: int = 3,
     return out
 
 
+@plane_scope()
 def denoise_render(scene, basis, params, img, iterations: int = 3):
     """Render the guide AOVs (normal, depth) of ``scene`` and filter
     ``img`` with them."""

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..camera import CameraBasis
+from ..ops.closest_hit import plane_scope
 from ..ops.intersect import cross
 from ..renderer import trace
 from ..scene import Scene
@@ -232,6 +233,7 @@ def _silhouette_point(c, r, phi, o):
                                       + torch.sin(phi)[:, None] * e2)
 
 
+@plane_scope()
 def gradients_from_draws(scene: Scene, basis: CameraBasis,
                          params: RenderParams, cot_image, draws: EdgeDraws,
                          eps_px: float = 0.05,
@@ -340,6 +342,7 @@ def gradients_from_draws(scene: Scene, basis: CameraBasis,
     return out
 
 
+@plane_scope()
 def boundary_gradients(scene: Scene, basis: CameraBasis, params: RenderParams,
                        cot_image, generator: torch.Generator,
                        n_tri_samples: int = 4096, n_sph_samples: int = 4096,

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..camera import CameraBasis
+from ..ops.closest_hit import plane_scope
 from ..parallel.shard import _padded_ids
 from ..renderer import _blocked_order, render_frame, render_pixels
 from ..scene import Scene
@@ -292,6 +293,7 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
                      for k, v in trainable.items()}
         return trainable, make_optimizer(list(trainable.values()))
 
+    @plane_scope()
     def step_fn(trainable, opt_state, scene, basis, target, frame_index):
         owned = {id(p) for group in opt_state.param_groups
                  for p in group["params"]}

@@ -119,8 +119,8 @@ def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
     the plain version; any other device, input the kernel does not take,
     or a scene whose boxes do not fit into the kernel's shared memory
     raises. Nothing falls back silently. The scene's packed planes come
-    from ``closest_hit.scene_planes``' cache, under its contract: a scene
-    tensor written behind autograd's back needs ``clear_plane_cache()``."""
+    from ``closest_hit.scene_planes``, cached for the enclosing
+    ``plane_scope``."""
     if o.device.type == "cpu":
         return anyhit_reference(scene, o, d, t_min, t_max, alive)
     if o.device.type != "cuda":
@@ -131,7 +131,7 @@ def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
     if R == 0:
         return out
     lib = _library()
-    planes = scene_planes(scene)   # packed once per scene (closest_hit.py)
+    planes = scene_planes(scene)   # packed once per call (closest_hit.py)
     n_clusters, n_supers = planes.n_clusters, planes.sup.shape[0]
     _check_shared("any-hit", lib.rtt_anyhit_shared_bytes(n_clusters, n_supers),
                   n_clusters)

@@ -134,9 +134,8 @@ def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
     CUDA tensors launch the kernel (built at first use), for any number
     of blocks; CPU tensors take the plain version; any other device or
     input the kernel does not take raises. Nothing falls back silently.
-    The scene's packed planes come from ``closest_hit.scene_planes``'
-    cache, under its contract: a scene tensor written behind autograd's
-    back needs ``clear_plane_cache()``."""
+    The scene's packed planes come from ``closest_hit.scene_planes``,
+    cached for the enclosing ``plane_scope``."""
     if o.device.type == "cpu":
         return nearest_hit_blocked_reference(scene, o, d, t_min, alive,
                                              want_attrs, block)

@@ -17,8 +17,8 @@ int32 (0 on miss) and, with ``want_attrs``, the winner's merged-table row
     every sphere and triangle with the kernel's arithmetic and tie rule,
     no culling, in ray chunks.
   * ``scene_planes`` — the kernels' packed inputs of a scene, cached per
-    device while the scene's tensors are unchanged; ``scene_planes.packs``
-    counts the packings.
+    device for one top-level call (``plane_scope``) while the scene's
+    tensors are unchanged; ``scene_planes.packs`` counts the packings.
 
 The plane arrays share the reference's layouts: spheres (SP, 16)
 ``[c(3) | r² | valid | albedo(3) | emission(3) | es | smooth | pad(3)]``,
@@ -36,6 +36,7 @@ from.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -216,23 +217,41 @@ class ScenePlanes:
 
 
 _plane_cache = {}   # device -> (key, the keyed tensors, ScenePlanes)
+_scope_depth = 0    # plane_scope()s entered and not yet left
+
+
+@contextlib.contextmanager
+def plane_scope():
+    """The plane cache's lifetime: one top-level call. Every public entry
+    point (a render, an AOV, a training step, the boundary gradients, a
+    recovery step, the sharded and the viewer's frame) runs inside one;
+    nested scopes share one cache, and leaving the outermost scope drops
+    every entry. Also a decorator."""
+    global _scope_depth
+    _scope_depth += 1
+    try:
+        yield
+    finally:
+        _scope_depth -= 1
+        if not _scope_depth:
+            _plane_cache.clear()
 
 
 def scene_planes(scene: Scene) -> ScenePlanes:
-    """The packed planes of ``scene``, from the cache while its tensors are
-    the same storage at the same version (an in-place update, such as an
-    optimizer's step, bumps ``_version``: a training step packs anew, a
-    render packs once per scene). One entry per device. The entry keeps
-    the keyed tensors alive, so their addresses cannot be handed to other
-    tensors while it stands; it also keeps that scene's planes (128 + 48
-    bytes a triangle, 192 + 48 textured) on the device until another
-    scene is packed there or ``clear_plane_cache()`` is called.
+    """The packed planes of ``scene``. Inside a ``plane_scope()`` they come
+    from the cache while the scene's tensors are the same storage at the
+    same version (an in-place update that autograd sees, such as an
+    optimizer's step, bumps ``_version`` and packs anew); outside one every
+    query packs. One entry per device. The entry keeps the keyed tensors
+    alive, so their addresses cannot be handed to other tensors while it
+    stands, and keeps that scene's planes (128 + 48 bytes a triangle,
+    192 + 48 textured) on the device until the outermost scope is left.
 
-    The contract: a scene changes through new tensors or through in-place
-    operations that autograd sees. A write that leaves ``_version`` as it
-    was (through ``.data``, ``set_`` or a kernel given the raw pointer) is
-    not seen, and the kernels would go on reading the planes packed before
-    it: after such a write the caller calls ``clear_plane_cache()``."""
+    The contract: the planes live as long as one top-level call, as the
+    reference packs inside each jitted call. A write to a scene tensor
+    between two calls is seen by any route (``.data``, ``set_``, a raw
+    pointer); within one call a scene changes through new tensors or
+    in-place operations that autograd sees."""
     fields = _TEXTURED_PLANE_FIELDS if scene.num_textures else _PLANE_FIELDS
     leaves = [getattr(scene, k) for k in fields]
     key = (scene.num_tris,) + tuple(
@@ -241,7 +260,8 @@ def scene_planes(scene: Scene) -> ScenePlanes:
     if entry is None or entry[0] != key:
         # detached aliases share storage and version with the leaves
         entry = (key, [x.detach() for x in leaves], ScenePlanes(scene))
-        _plane_cache[scene.device] = entry
+        if _scope_depth:
+            _plane_cache[scene.device] = entry
         scene_planes.packs += 1
     return entry[2]
 
@@ -251,8 +271,8 @@ scene_planes.packs = 0
 
 def clear_plane_cache():
     """Forget every cached scene and free its planes: the next query packs
-    anew. Needed after a write to a scene tensor that autograd does not see
-    (``scene_planes``)."""
+    anew. Never needed for correctness (the cache lives one top-level
+    call); a measurement calls it to time a cold query inside a scope."""
     _plane_cache.clear()
 
 
@@ -445,8 +465,7 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
     the plain version; any other device, input the kernel does not take,
     or a scene whose boxes do not fit into the kernel's shared memory
     raises. Nothing falls back silently. The scene's packed planes come
-    from ``scene_planes``' cache: a scene tensor written behind autograd's
-    back (``.data``) needs ``clear_plane_cache()`` before the next call."""
+    from ``scene_planes``, cached for the enclosing ``plane_scope``."""
     if o.device.type == "cpu":
         return nearest_hit_attrs_reference(scene, o, d, t_min, alive,
                                            want_attrs)

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from ..camera import CameraBasis
+from ..ops.closest_hit import plane_scope
 from ..renderer import (_blocked_ids, _unblock, render_pixels,
                         resolved_backend)
 from ..scene import Scene
@@ -60,6 +61,7 @@ def _render_sharded(scene: Scene, basis: CameraBasis, params: RenderParams,
     return img.reshape(H, W, 3)
 
 
+@plane_scope()
 def render_frame_distributed(scene: Scene, basis: CameraBasis,
                              params: RenderParams, frame_index,
                              mesh: Optional[Mesh] = None):

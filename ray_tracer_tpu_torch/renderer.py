@@ -38,6 +38,7 @@ from . import materials, sampling
 from .camera import Camera, CameraBasis, camera_basis, camera_rays
 from .envlight import environment_light
 from .lights import _unit, build_light_table, glossy_mix_pdf, sample_lights
+from .ops.closest_hit import plane_scope
 from .ops.intersect import cross, intersect, occluded, resolve_backend
 from .scene import Scene
 from .utils.bounds import clip, maximum, minimum
@@ -313,6 +314,7 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
     return state, incoming
 
 
+@plane_scope()
 def render_pixels(scene: Scene, basis: CameraBasis, params: RenderParams,
                   frame_index: int, pixel_ids):
     """Render flat pixel ids (y * W + x, y=0 bottom row) → (N, 3).
@@ -379,6 +381,7 @@ def _unblock(img_flat, inverse, W: int, H: int):
     return img_flat[inverse]
 
 
+@plane_scope()
 def render_frame(scene: Scene, basis: CameraBasis, params: RenderParams,
                  frame_index: int):
     """One full frame → (H, W, 3) linear radiance, row 0 = bottom.
@@ -414,6 +417,7 @@ def render_frame(scene: Scene, basis: CameraBasis, params: RenderParams,
     return img.reshape(H, W, 3)
 
 
+@plane_scope()
 def render_aov(scene: Scene, basis: CameraBasis, params: RenderParams,
                aov: str = "depth"):
     """Primary-ray AOV (arbitrary output variable) image → (H, W, C).
@@ -470,17 +474,42 @@ def accumulate(prev, frame_img, frame_index: int):
     return prev * (1.0 - w) + frame_img * w
 
 
+def _chunks(frames: int, chunk: int):
+    """(first, count) of each run of at most ``chunk`` of ``frames``
+    frames."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    return [(k, min(chunk, frames - k)) for k in range(0, frames, chunk)]
+
+
+def _safe_point(*xs):
+    """Each tensor copied to the host and back (``resilient``'s host-side
+    safe point): the values are unchanged."""
+    return tuple(x.cpu().to(x.device) for x in xs)
+
+
+@plane_scope()
 def render_progressive(scene: Scene, basis: CameraBasis, params: RenderParams,
-                       frames: int, start_frame: int = 0, image0=None):
+                       frames: int, start_frame: int = 0, image0=None,
+                       chunk: int = 8, resilient: bool = False):
     """``frames`` progressive frames from ``start_frame``, accumulated on the
     scene's device → (H, W, 3). Equal to ``render_frame`` + ``accumulate``
-    per frame; ``image0`` continues an earlier accumulation."""
+    per frame; ``image0`` continues an earlier accumulation.
+
+    Frames go in chunks of ``chunk``, the safe points; the chunking never
+    changes the values. ``resilient=True`` copies the accumulated image to
+    the host after each chunk. The reference also retries a chunk whose
+    launch died on a remote relay's transient error; a local card has no
+    relay, so nothing is retried (ROADMAP.md D4)."""
     H, W = params.height, params.width
     img = (torch.zeros((H, W, 3), dtype=torch.float32, device=scene.device)
            if image0 is None else image0)
-    for k in range(frames):
-        f = start_frame + k
-        img = accumulate(img, render_frame(scene, basis, params, f), f)
+    for first, count in _chunks(frames, chunk):
+        for k in range(first, first + count):
+            f = start_frame + k
+            img = accumulate(img, render_frame(scene, basis, params, f), f)
+        if resilient:
+            img, = _safe_point(img)
     return img
 
 
@@ -510,27 +539,31 @@ def _adaptive_stats(s, s2, n: int, target_rel_std: float):
 
 
 @torch.no_grad()
+@plane_scope()
 def render_adaptive(scene: Scene, basis: CameraBasis, params: RenderParams,
                     max_frames: int, target_rel_std: float = 0.02,
-                    chunk: int = 16, converged_fraction: float = 0.99):
+                    chunk: int = 16, converged_fraction: float = 0.99,
+                    resilient: bool = False):
     """Variance-guided progressive rendering: frames in chunks of
     ``chunk``, per-pixel moments kept on the scene's device, stopping once
     at least ``converged_fraction`` of the pixels have a relative standard
     error of the mean below ``target_rel_std`` (``_adaptive_stats``), or
     at ``max_frames``. One scalar leaves the device per chunk. Not
     differentiable (the stopping rule reads a value), as in the
-    reference. The reference's ``resilient`` retries of a TPU relay are
-    not ported (ROADMAP.md D4).
+    reference. ``resilient=True`` copies both moment images to the host
+    after each chunk, a safe point that does not change the values; as in
+    ``render_progressive`` nothing is retried (ROADMAP.md D4).
 
     Returns (mean image (H, W, 3), frames rendered)."""
     H, W = params.height, params.width
     s = torch.zeros((H, W, 3), dtype=torch.float32, device=scene.device)
     s2 = torch.zeros_like(s)
-    n = 0
-    while n < max_frames:
-        k = min(chunk, max_frames - n)
-        s, s2 = _render_moments_chunk(scene, basis, params, k, n, (s, s2))
-        n += k
+    for first, k in _chunks(max_frames, chunk):
+        s, s2 = _render_moments_chunk(scene, basis, params, k, first,
+                                      (s, s2))
+        if resilient:
+            s, s2 = _safe_point(s, s2)
+        n = first + k
         mean, frac_noisy = _adaptive_stats(s, s2, n, target_rel_std)
         if float(frac_noisy) <= 1.0 - converged_fraction:
             break

@@ -57,6 +57,7 @@ from ..grad.topology import (apply_vertex_offsets, build_topology,
                              dirichlet_energy, pull_back_vertex_grads,
                              sobolev_precondition)
 from ..io import load_model
+from ..ops.closest_hit import plane_scope
 from ..renderer import render_aov, render_frame
 from ..utils.bounds import maximum
 from ..utils.config import RenderParams
@@ -120,6 +121,7 @@ class RecoveryOptimizer:
                  lr_scale: float = 0.004, albedo_phase: float = 0.25):
         self.steps, self.ext, self.lr_scale = steps, ext, lr_scale
         self.a_phase = int(albedo_phase * steps)
+        self.max_norms = (float(10.0 * ext), 10.0)   # the groups' clips
         self.count = 0
         self.mu = [torch.zeros_like(off), torch.zeros_like(alb)]
         self.nu = [torch.zeros_like(off), torch.zeros_like(alb)]
@@ -137,8 +139,7 @@ class RecoveryOptimizer:
         n = self.count + 1
         out = []
         for i, (g, max_norm, lr) in enumerate(zip(
-                (g_off, g_alb), (float(10.0 * self.ext), 10.0),
-                self.rates(self.count))):
+                (g_off, g_alb), self.max_norms, self.rates(self.count))):
             norm = torch.sqrt(torch.sum(g * g))
             g = torch.where(norm < max_norm, g, (g / norm) * max_norm)
             self.mu[i] = (1 - self.B1) * g + self.B1 * self.mu[i]
@@ -188,7 +189,7 @@ def run_vertex_recovery(scene_true, topo, params, bases, steps,
                 * valid[:, None])
         return s
 
-    with torch.no_grad():
+    with torch.no_grad(), plane_scope():
         # target-side coverage masks per view, constant across the run
         hit_targets = [render_aov(scene_true, b, params, "hit")
                        for b in bases]
@@ -221,38 +222,39 @@ def run_vertex_recovery(scene_true, topo, params, bases, steps,
             with torch.no_grad():
                 target = render_frame(scene_true, basis, params, f)
 
-        off_ = off.clone().requires_grad_(True)
-        alb_ = alb.clone().requires_grad_(recover_albedo)
-        scene = scene_at(off_, alb_)
-        img = render_frame(scene, basis, params, f)
-        res = (img - target).detach()
-        loss = torch.mean(res ** 2)
-        cot = 2.0 * res / res.numel()
-        # the frame's scene without autograd: the same tensors, so the
-        # AOV and the edge traces reuse the frame's packed planes
-        scene_d = scene.detach()
+        with plane_scope():   # the step's scene packs once for its renders
+            off_ = off.clone().requires_grad_(True)
+            alb_ = alb.clone().requires_grad_(recover_albedo)
+            scene = scene_at(off_, alb_)
+            img = render_frame(scene, basis, params, f)
+            res = (img - target).detach()
+            loss = torch.mean(res ** 2)
+            cot = 2.0 * res / res.numel()
+            # the frame's scene without autograd: the same tensors, so the
+            # AOV and the edge traces reuse the frame's packed planes
+            scene_d = scene.detach()
 
-        # interior gradient; the albedo cotangent is restricted to pixels
-        # both coverages agree on (the silhouette-band bias fix)
-        with torch.no_grad():
-            w = render_aov(scene_d, basis, params, "hit") * hit_t
-        g_off, = torch.autograd.grad(img, off_, cot,
-                                     retain_graph=recover_albedo)
-        if recover_albedo:
-            g_alb, = torch.autograd.grad(
-                img, alb_, 2.0 * res * w / (3.0 * maximum(torch.sum(w),
-                                                          1.0)))
-        else:
-            g_alb = torch.zeros_like(alb)
-        del img
+            # interior gradient; the albedo cotangent is restricted to pixels
+            # both coverages agree on (the silhouette-band bias fix)
+            with torch.no_grad():
+                w = render_aov(scene_d, basis, params, "hit") * hit_t
+            g_off, = torch.autograd.grad(img, off_, cot,
+                                         retain_graph=recover_albedo)
+            if recover_albedo:
+                g_alb, = torch.autograd.grad(
+                    img, alb_, 2.0 * res * w / (3.0 * maximum(torch.sum(w),
+                                                              1.0)))
+            else:
+                g_alb = torch.zeros_like(alb)
+            del img
 
-        # boundary (visibility) gradient at the current geometry
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(EDGE_SEED * 2 ** 20 + i)
-        bg = boundary_gradients(scene_d, basis, params, cot, gen,
-                                n_tri_samples=edge_samples, n_sph_samples=0,
-                                topology=topo)
-        g_off = g_off + pull_back_vertex_grads(topo, bg, valid)
+            # boundary (visibility) gradient at the current geometry
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(EDGE_SEED * 2 ** 20 + i)
+            bg = boundary_gradients(scene_d, basis, params, cot, gen,
+                                    n_tri_samples=edge_samples,
+                                    n_sph_samples=0, topology=topo)
+            g_off = g_off + pull_back_vertex_grads(topo, bg, valid)
 
         # priors, dimensionless (offsets in exts): Dirichlet smoothness,
         # its weight annealed from smooth_weight to smooth_weight_end, and

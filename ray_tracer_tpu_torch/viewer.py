@@ -28,6 +28,7 @@ import time
 
 from .camera import CameraController, camera_basis, update_camera
 from .io.image import to_uint8
+from .ops.closest_hit import plane_scope
 from .renderer import Renderer
 from .scene import SCENE_IDS, builtin_scene
 from .utils.config import RenderParams
@@ -157,12 +158,13 @@ class ViewerCore:
         (uint8 image on the host, seconds); the seconds include the copy
         to the host, which waits for the device, and go to the clock."""
         t0 = time.perf_counter()
-        img = self.renderer.step()
-        if self.denoise:
-            from .denoise import denoise_render
-            img = denoise_render(
-                self.renderer.scene, camera_basis(self.renderer.camera),
-                self.renderer.params, img, iterations=self.denoise)
+        with plane_scope():     # the frame and its guides share one packing
+            img = self.renderer.step()
+            if self.denoise:
+                from .denoise import denoise_render
+                img = denoise_render(
+                    self.renderer.scene, camera_basis(self.renderer.camera),
+                    self.renderer.params, img, iterations=self.denoise)
         rgb = to_uint8(img)
         dt = time.perf_counter() - t0
         self._dt = max(dt, 1e-3)

@@ -124,6 +124,24 @@ def test_resilient_writes_a_checkpoint_per_safe_point(tmp_path, monkeypatch):
     assert checkpoint.load_renderer(ck, metal()[0]).frames == 9
 
 
+def test_adaptive_passes_resilient_on(tmp_path, monkeypatch):
+    """--adaptive with --resilient keeps the moments' safe points
+    (``render_adaptive(..., resilient=True)``), as the reference's CLI
+    does; the image is the one without."""
+    from ray_tracer_tpu_torch import renderer
+    seen = []
+    real = renderer.render_adaptive
+    monkeypatch.setattr(renderer, "render_adaptive", lambda *a, **kw: (
+        seen.append(kw["resilient"]), real(*a, **kw))[1])
+    common = ["render", "--scene", "metal", "--skybox", "--frames", "4",
+              "--adaptive", "0.01"] + SIZE
+    cli.main(common + ["--resilient", "-o", str(tmp_path / "r.npy")])
+    cli.main(common + ["-o", str(tmp_path / "p.npy")])
+    assert seen == [True, False]
+    np.testing.assert_array_equal(np.load(tmp_path / "r.npy"),
+                                  np.load(tmp_path / "p.npy"))
+
+
 def test_render_model_file(tmp_path):
     """--model loads an OBJ into a studio scene framed by its bounds."""
     obj = tmp_path / "quad.obj"

@@ -40,6 +40,7 @@ def test_import_leaves_jax_out():
             "import ray_tracer_tpu_torch.models\n"
             "import ray_tracer_tpu_torch.utils.native\n"
             "import ray_tracer_tpu_torch.tools.invert_vertices\n"
+            "import ray_tracer_tpu_torch.tools.invert_teapot\n"
             "import ray_tracer_tpu_torch.parallel\n"
             "import ray_tracer_tpu_torch.parallel.distributed\n"
             "import ray_tracer_tpu_torch.cli, ray_tracer_tpu_torch.viewer\n"

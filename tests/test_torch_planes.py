@@ -7,8 +7,10 @@ to the reference's (``_super_aabbs`` over ``_pad_clusters_for_supers``) on
 the same scene leaves, exactly, on the real supers: both take the min and
 max of the same stored values. Every real triangle must lie inside the box
 of its cluster, super and block, which is what makes the culling safe. The
-cache must hand back the same planes while a scene's tensors are unchanged
-and pack anew after any in-place update or a new scene.
+cache lives one top-level call (``plane_scope``): inside a scope it must
+hand back the same planes while a scene's tensors are unchanged and pack
+anew after any in-place update or a new scene; outside one every query
+packs, so a write between two calls is seen whatever its route.
 """
 
 import dataclasses
@@ -18,12 +20,17 @@ import pytest
 import torch
 
 import ray_tracer_tpu as jrt
+import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.ops import pallas_intersect as jpk
 from ray_tracer_tpu_torch.ops import blocked_hit as tbh
 from ray_tracer_tpu_torch.ops import closest_hit as tch
 
+from ray_tracer_tpu_torch import renderer as tr
+from ray_tracer_tpu_torch.ops.intersect import merged_width
+
 from test_torch_blocked import _mesh
 from test_torch_common import scene_pair, terrain, to_port
+from test_torch_grad import kernel_path_on_cpu
 
 
 def _scenes(name):
@@ -101,48 +108,70 @@ def test_real_triangles_lie_inside_their_boxes(pair, level):
 
 def test_cache_returns_the_same_planes_for_an_unchanged_scene():
     _, ts = _scenes("room")
-    tch.clear_plane_cache()
+    with tch.plane_scope():
+        before = tch.scene_planes.packs
+        planes = tch.scene_planes(ts)
+        assert tch.scene_planes.packs == before + 1
+        assert tch.scene_planes(ts) is planes
+        # a copy of the dataclass over the same tensors is the same scene
+        assert tch.scene_planes(dataclasses.replace(ts)) is planes
+        assert planes.block_boxes(16) is planes.block_boxes(16)
+        assert tch.scene_planes.packs == before + 1
+        tch.clear_plane_cache()
+        assert tch.scene_planes(ts) is not planes
+        assert tch.scene_planes.packs == before + 2
+
+
+def test_cache_lives_one_top_level_call():
+    """Outside a scope every query packs and nothing is kept; nested scopes
+    share one entry, and leaving the outermost drops it."""
+    _, ts = _scenes("room")
     before = tch.scene_planes.packs
-    planes = tch.scene_planes(ts)
-    assert tch.scene_planes.packs == before + 1
-    assert tch.scene_planes(ts) is planes
-    # a copy of the dataclass over the same tensors is the same scene
-    assert tch.scene_planes(dataclasses.replace(ts)) is planes
-    assert planes.block_boxes(16) is planes.block_boxes(16)
-    assert tch.scene_planes.packs == before + 1
-    tch.clear_plane_cache()
-    assert tch.scene_planes(ts) is not planes
-    assert tch.scene_planes.packs == before + 2
+    first = tch.scene_planes(ts)
+    assert tch.scene_planes(ts) is not first
+    assert tch.scene_planes.packs == before + 2 and not tch._plane_cache
+    with tch.plane_scope():
+        planes = tch.scene_planes(ts)
+        with tch.plane_scope():
+            assert tch.scene_planes(ts) is planes
+        assert tch.scene_planes(ts) is planes and tch._plane_cache
+    assert not tch._plane_cache and tch.scene_planes.packs == before + 3
+    with pytest.raises(RuntimeError), tch.plane_scope():
+        tch.scene_planes(ts)
+        raise RuntimeError("a call that fails")
+    assert not tch._plane_cache and tch._scope_depth == 0
 
 
 @pytest.mark.parametrize("field", ["tri_v0", "tri_albedo", "sphere_radius",
                                    "tri_valid"])
 def test_cache_repacks_after_an_in_place_update(field):
     _, ts = _scenes("room")
-    planes = tch.scene_planes(ts)
-    before = tch.scene_planes.packs
-    getattr(ts, field).mul_(0.5)
-    again = tch.scene_planes(ts)
-    assert again is not planes and tch.scene_planes.packs == before + 1
-    fresh = tch.ScenePlanes(ts)
-    for k in ("sph", "geo", "tri", "clu", "sup"):
-        assert torch.equal(getattr(again, k), getattr(fresh, k)), k
-    assert tch.scene_planes(ts) is again
+    with tch.plane_scope():
+        planes = tch.scene_planes(ts)
+        before = tch.scene_planes.packs
+        getattr(ts, field).mul_(0.5)
+        again = tch.scene_planes(ts)
+        assert again is not planes and tch.scene_planes.packs == before + 1
+        fresh = tch.ScenePlanes(ts)
+        for k in ("sph", "geo", "tri", "clu", "sup"):
+            assert torch.equal(getattr(again, k), getattr(fresh, k)), k
+        assert tch.scene_planes(ts) is again
 
 
 def test_cache_repacks_for_a_new_scene_and_a_replaced_leaf():
     _, ts = _scenes("room")
-    planes = tch.scene_planes(ts)
-    before = tch.scene_planes.packs
-    _, other = _scenes("room")          # equal values, other tensors
-    assert tch.scene_planes(other) is not planes
-    moved = dataclasses.replace(ts, tri_v0=ts.tri_v0 + 1.0)
-    got = tch.scene_planes(moved)
-    assert tch.scene_planes.packs == before + 2
-    assert torch.equal(got.geo[:, 0:3], ts.tri_v0 + 1.0)
-    # one entry per device: the first scene packs again
-    assert tch.scene_planes(ts) is not planes
-    assert tch.scene_planes.packs == before + 3
+    with tch.plane_scope():
+        planes = tch.scene_planes(ts)
+        before = tch.scene_planes.packs
+        _, other = _scenes("room")          # equal values, other tensors
+        assert tch.scene_planes(other) is not planes
+        moved = dataclasses.replace(ts, tri_v0=ts.tri_v0 + 1.0)
+        got = tch.scene_planes(moved)
+        assert tch.scene_planes.packs == before + 2
+        assert torch.equal(got.geo[:, 0:3], ts.tri_v0 + 1.0)
+        # one entry per device: the first scene packs again
+        assert tch.scene_planes(ts) is not planes
+        assert tch.scene_planes.packs == before + 3
 
 
 def test_cache_holds_no_graph_and_follows_an_optimizer_step():
@@ -153,36 +182,101 @@ def test_cache_holds_no_graph_and_follows_an_optimizer_step():
     leaves = {k: getattr(ts, k).clone().requires_grad_(True)
               for k in ("tri_v0", "tri_albedo", "sphere_center")}
     scene = dataclasses.replace(ts, **leaves)
-    planes = tch.scene_planes(scene)
-    for k in ("sph", "geo", "tri", "clu", "sup"):
-        x = getattr(planes, k)
-        assert not x.requires_grad and x.grad_fn is None, k
-    assert not planes.block_boxes(16).requires_grad
-    assert tch.scene_planes(scene) is planes
-    opt = torch.optim.Adam(list(leaves.values()), lr=1e-2)
-    for p in leaves.values():
-        p.grad = torch.ones_like(p)
-    before = tch.scene_planes.packs
-    opt.step()
-    stepped = tch.scene_planes(scene)
-    assert stepped is not planes and tch.scene_planes.packs == before + 1
-    assert not stepped.geo.requires_grad
-    assert torch.equal(stepped.geo[:, 0:3], leaves["tri_v0"].detach())
-    assert not torch.equal(stepped.geo, planes.geo)
+    with tch.plane_scope():
+        planes = tch.scene_planes(scene)
+        for k in ("sph", "geo", "tri", "clu", "sup"):
+            x = getattr(planes, k)
+            assert not x.requires_grad and x.grad_fn is None, k
+        assert not planes.block_boxes(16).requires_grad
+        assert tch.scene_planes(scene) is planes
+        opt = torch.optim.Adam(list(leaves.values()), lr=1e-2)
+        for p in leaves.values():
+            p.grad = torch.ones_like(p)
+        before = tch.scene_planes.packs
+        opt.step()
+        stepped = tch.scene_planes(scene)
+        assert stepped is not planes and tch.scene_planes.packs == before + 1
+        assert not stepped.geo.requires_grad
+        assert torch.equal(stepped.geo[:, 0:3], leaves["tri_v0"].detach())
+        assert not torch.equal(stepped.geo, planes.geo)
 
 
-def test_cache_does_not_see_a_write_through_data():
-    """The contract's other side: a write that autograd cannot see (through
-    ``.data``, which keeps ``_version``) leaves the cached planes standing,
-    and ``clear_plane_cache()`` is how the caller makes it count."""
-    _, ts = _scenes("room")
-    planes = tch.scene_planes(ts)
-    before = tch.scene_planes.packs
-    ts.tri_albedo.data.mul_(0.5)
-    assert tch.scene_planes(ts) is planes
-    assert tch.scene_planes.packs == before
-    tch.clear_plane_cache()
-    again = tch.scene_planes(ts)
-    assert again is not planes and tch.scene_planes.packs == before + 1
-    assert torch.equal(again.tri, tch.ScenePlanes(ts).tri)
-    assert not torch.equal(again.tri, planes.tri)
+def _table_from_planes(planes):
+    """The merged attribute table as the kernel copies it out of the
+    packed planes (its copy maps), zero where it holds no column."""
+    sph_map, tri_map = tch._attr_copy_maps()
+    parts = []
+    for plane, pairs in ((planes.sph, sph_map), (planes.tri, tri_map)):
+        table = plane.new_zeros((plane.shape[0], merged_width(False)))
+        for row, col in pairs:
+            table[:, row] = plane[:, col]
+        parts.append(table)
+    return torch.cat(parts)
+
+
+def planes_path_on_cpu(monkeypatch):
+    """The kernels' path on the CPU, with the closest hits computed from
+    the scene's cached planes as the kernel reads them: the plain version
+    fed ``scene_planes(scene)``'s sphere and triangle planes and the
+    winner rows copied out of them. A stale cache shows in the image."""
+    kernel_path_on_cpu(monkeypatch)
+    real = tch.nearest_hit_attrs_reference
+    queries = []
+
+    def from_planes(scene, o, d, t_min=1e-4, alive=None, want_attrs=True):
+        planes = tch.scene_planes(scene)
+        queries.append(planes)
+        with monkeypatch.context() as m:
+            m.setattr(tch, "_pack_spheres", lambda s: planes.sph)
+            m.setattr(tch, "_pack_tris", lambda s: planes.tri)
+            m.setattr(tch, "_pack_attrs",
+                      lambda s: _table_from_planes(planes))
+            return real(scene, o, d, t_min, alive, want_attrs)
+
+    monkeypatch.setattr(tch, "nearest_hit_attrs_reference", from_planes)
+    return queries
+
+
+WRITE_PARAMS = dict(width=24, height=16, bounces=1, skybox=True)
+
+
+@pytest.mark.parametrize("route", ["data", "set_"])
+def test_cache_sees_a_write_through_data(route, monkeypatch):
+    """A write that autograd does not see (through ``.data``, which keeps
+    ``_version``, or ``set_``) between two renders on the kernels' path is
+    seen: the planes live one call. The second image is the written
+    scene's (the plain path's render of it) and differs from the first."""
+    _, ts, cam = scene_pair("metal")
+    queries = planes_path_on_cpu(monkeypatch)
+    basis = trt.camera_basis(trt.Camera(**vars(cam)))
+    params = trt.RenderParams(backend="cuda", **WRITE_PARAMS)
+    first = tr.render_frame(ts, basis, params, 0)
+    assert len(queries) == params.bounces + 1
+    assert len({id(q) for q in queries}) == 1     # one packing a call
+    if route == "data":
+        ts.sphere_albedo.data.mul_(0.5)
+    else:
+        ts.sphere_albedo.set_(ts.sphere_albedo * 0.5)
+    second = tr.render_frame(ts, basis, params, 0)
+    want = tr.render_frame(ts, basis, params.replace(backend="torch"), 0)
+    assert torch.equal(second, want)
+    assert not torch.equal(second, first)
+
+
+def test_cache_sees_an_in_place_write_within_a_scope(monkeypatch):
+    """Within one scope, an in-place write that autograd sees (it bumps
+    ``_version``) repacks the next query: the second render inside the
+    scope shows it."""
+    _, ts, cam = scene_pair("metal")
+    planes_path_on_cpu(monkeypatch)
+    basis = trt.camera_basis(trt.Camera(**vars(cam)))
+    params = trt.RenderParams(backend="cuda", **WRITE_PARAMS)
+    with tch.plane_scope():
+        before = tch.scene_planes.packs
+        first = tr.render_frame(ts, basis, params, 0)
+        ts.sphere_albedo.mul_(0.5)
+        second = tr.render_frame(ts, basis, params, 0)
+        assert tch.scene_planes.packs == before + 2
+    want = tr.render_frame(ts, basis, params.replace(backend="torch"), 0)
+    assert torch.equal(second, want)
+    assert not torch.equal(second, first)

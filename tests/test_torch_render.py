@@ -14,12 +14,13 @@ import torch
 
 import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
+from ray_tracer_tpu import renderer as jr
 from ray_tracer_tpu.renderer import _blocked_order as j_blocked_order
 from ray_tracer_tpu.renderer import render_frame as j_render_frame
 from ray_tracer_tpu.renderer import render_progressive as j_render_progressive
 from ray_tracer_tpu_torch import renderer as tr
 
-from test_torch_common import frac_off, scene_pair
+from test_torch_common import frac_off, one_thread, scene_pair  # noqa: F401
 
 # coherent_tile=0 exercises the fixed 512-ray share tile
 PARAMS = dict(width=64, height=64, bounces=3, skybox=True,
@@ -56,6 +57,56 @@ def test_render_progressive_matches_jax():
     for f in (1, 2):
         img = tr.accumulate(img, tr.render_frame(ts, tb, params, f), f)
     assert torch.equal(img, got)
+
+
+# the reference tests' shapes for chunk / resilient (tests/test_retry.py)
+SAFE_POINT_PARAMS = dict(width=32, height=32, bounces=1, skybox=True)
+
+
+def _metal_safe_points():
+    js, ts, cam = scene_pair("metal")
+    return (js, jrt.camera_basis(cam), ts,
+            trt.camera_basis(trt.Camera(**vars(cam))))
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_render_progressive_chunks_and_safe_points():
+    """``chunk`` and ``resilient`` (a host copy of the image after each
+    chunk) never change the values: bit-equal to the default call, and
+    at the image gate of the reference's chunked call."""
+    js, jb, ts, tb = _metal_safe_points()
+    params = trt.RenderParams(**SAFE_POINT_PARAMS)
+    want = tr.render_progressive(ts, tb, params, 4)
+    for kw in (dict(chunk=2), dict(resilient=True),
+               dict(chunk=3, resilient=True)):
+        assert torch.equal(tr.render_progressive(ts, tb, params, 4, **kw),
+                           want), kw
+    ref = np.asarray(j_render_progressive(
+        js, jb, jrt.RenderParams(backend="jnp", **SAFE_POINT_PARAMS), 4,
+        chunk=2))
+    assert frac_off(want.numpy(), ref) < GATE
+    with pytest.raises(ValueError, match="chunk"):
+        tr.render_progressive(ts, tb, params, 4, chunk=0)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_render_adaptive_safe_points():
+    """``render_adaptive(..., resilient=True)`` (both moments copied to the
+    host after each chunk) is bit-equal to the call without, uses every
+    frame at target 0, and its mean is at the image gate of the
+    reference's."""
+    js, jb, ts, tb = _metal_safe_points()
+    params = trt.RenderParams(**SAFE_POINT_PARAMS)
+    img, used = tr.render_adaptive(ts, tb, params, 4, 0.0, chunk=2,
+                                   resilient=True)
+    want, used_plain = tr.render_adaptive(ts, tb, params, 4, 0.0, chunk=2)
+    assert used == used_plain == 4
+    assert torch.equal(img, want)
+    ref, used_j = jr.render_adaptive(
+        js, jb, jrt.RenderParams(backend="jnp", **SAFE_POINT_PARAMS), 4, 0.0,
+        chunk=2)
+    assert used_j == 4
+    assert frac_off(img.numpy(), np.asarray(ref)) < GATE
 
 
 def test_render_and_renderer_match_progressive():

@@ -395,17 +395,19 @@ def test_texture_recovery_step_lowers_the_loss():
 
 def test_cache_repacks_after_an_in_place_uv_update():
     """The textured planes are keyed on the UV, tangent and id tensors
-    too: an in-place update of tri_uv0 (an optimizer's step) packs anew."""
+    too: within a scope, an in-place update of tri_uv0 (an optimizer's
+    step) packs anew."""
     _, ts, _ = scene_pair("terrain_tex")
-    planes = tch.scene_planes(ts)
-    assert planes.tri.shape[1] == 48
-    before = tch.scene_planes.packs
-    ts.tri_uv0.add_(0.25)
-    again = tch.scene_planes(ts)
-    assert again is not planes and tch.scene_planes.packs == before + 1
-    assert torch.equal(again.tri[:, 32:34], ts.tri_uv0)
-    assert torch.equal(again.tri, tch.ScenePlanes(ts).tri)
-    assert tch.scene_planes(ts) is again
+    with tch.plane_scope():
+        planes = tch.scene_planes(ts)
+        assert planes.tri.shape[1] == 48
+        before = tch.scene_planes.packs
+        ts.tri_uv0.add_(0.25)
+        again = tch.scene_planes(ts)
+        assert again is not planes and tch.scene_planes.packs == before + 1
+        assert torch.equal(again.tri[:, 32:34], ts.tri_uv0)
+        assert torch.equal(again.tri, tch.ScenePlanes(ts).tri)
+        assert tch.scene_planes(ts) is again
 
 
 def test_textured_wrappers_on_cpu_take_the_plain_versions():
