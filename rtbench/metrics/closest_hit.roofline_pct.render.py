@@ -1,0 +1,7 @@
+"""Share of the HBM bound that the closest_hit kernel reaches over a render's
+launches: its contract's bytes (``roofline/closest_hit.py``) at the published
+peak over its device time. None where it did not run."""
+
+
+def read(trace):
+    return trace.roofline("closest_hit")

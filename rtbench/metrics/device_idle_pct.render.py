@@ -1,0 +1,6 @@
+"""Share of the traced stretch of render calls in which the device ran no
+kernel, copy or fill."""
+
+
+def read(trace):
+    return trace.idle_pct()
