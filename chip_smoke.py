@@ -3779,7 +3779,8 @@ def viewer_path(device, card):
         figure = "matplotlib is not installed here: the figure not run"
     return (f"{frames} frames ({W}x{H}, then {VIEWER_RESIZE[0]}x"
             f"{VIEWER_RESIZE[1]}) after keys {''.join(VIEWER_KEYS)}: "
-            f"{core.clock.summary()}; packings per frame {packs}; "
+            f"{core.clock.mean_ms:.1f} ms/frame ({core.clock.fps:.2f} fps, "
+            f"n={core.clock.count}); packings per frame {packs}; "
             f"{figure} | {card}")
 
 

@@ -25,6 +25,7 @@ and takes the same optimizer step.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +37,7 @@ from ..parallel.shard import _padded_ids
 from ..renderer import _blocked_order, render_frame, render_pixels
 from ..scene import Scene
 from ..utils.config import RenderParams
+from ..utils.metrics import span
 
 # Continuous scene leaves that make sense to optimize.
 DEFAULT_TRAINABLE = ("sphere_albedo", "sphere_center", "sphere_radius",
@@ -283,9 +285,12 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
       step_fn(trainable, opt_state, scene, basis, target, frame_index)
           -> (trainable, opt_state, loss)
     ``trainable``'s tensors are the optimizer's parameters: ``step_fn``
-    updates them in place and returns the same dict.
+    updates them in place and returns the same dict. A step is the span
+    ``train.step`` (``utils/metrics.span``, numbered from 1 as its request
+    id) around ``train.forward``, ``train.backward`` and ``train.optimizer``.
     """
     make_optimizer = optimizer or _adam
+    step_ids = itertools.count(1)     # the spans' request id of a step
 
     def init_fn(scene: Scene, fields: Sequence[str] = DEFAULT_TRAINABLE):
         trainable, _ = split_scene(scene, fields)
@@ -300,35 +305,44 @@ def make_train_step(params: RenderParams, optimizer=None, mesh=None,
         if owned != {id(p) for p in trainable.values()}:
             raise ValueError("trainable must hold the optimizer's own "
                              "parameters (made by init_fn)")
-        if grad_chunks > 1:
-            on_device = basis.to(scene.device)
+        with span("train.step", request=next(step_ids)):
+            return _step(trainable, opt_state, scene, basis, target,
+                         frame_index)
 
-            def rp(tr, ids):
-                return render_pixels(merge_scene(scene, tr), on_device,
-                                     params, int(frame_index), ids)
+    def _step(trainable, opt_state, scene, basis, target, frame_index):
+        with span("train.forward"):
+            if grad_chunks > 1:
+                on_device = basis.to(scene.device)
 
-            if mesh is None:
-                loss, grads = chunked_mse_value_and_grad(
-                    trainable, rp, params, target, grad_chunks)
+                def rp(tr, ids):
+                    return render_pixels(merge_scene(scene, tr), on_device,
+                                         params, int(frame_index), ids)
+
+                if mesh is None:
+                    loss, grads = chunked_mse_value_and_grad(
+                        trainable, rp, params, target, grad_chunks)
+                else:
+                    loss, grads = sharded_chunked_mse_value_and_grad(
+                        trainable, rp, params, target, grad_chunks, mesh)
             else:
-                loss, grads = sharded_chunked_mse_value_and_grad(
-                    trainable, rp, params, target, grad_chunks, mesh)
-        else:
-            names = list(trainable)
-            loss = image_mse(trainable, scene, basis, params, frame_index,
-                             target, mesh=mesh)
-            g = torch.autograd.grad(loss, [trainable[k] for k in names],
-                                    allow_unused=True)
-            grads = {k: (torch.zeros_like(trainable[k]) if gk is None
-                         else gk) for k, gk in zip(names, g)}
-            loss = loss.detach()
-        if edge_samples:
-            grads = _add_boundary_gradients(
-                grads, merge_scene(scene, trainable), basis, params, target,
-                frame_index, edge_samples, topology, mesh)
-        for k, p in trainable.items():
-            p.grad = grads[k]
-        opt_state.step()
+                loss = image_mse(trainable, scene, basis, params,
+                                 frame_index, target, mesh=mesh)
+        with span("train.backward"):
+            if grad_chunks <= 1:
+                names = list(trainable)
+                g = torch.autograd.grad(loss, [trainable[k] for k in names],
+                                        allow_unused=True)
+                grads = {k: (torch.zeros_like(trainable[k]) if gk is None
+                             else gk) for k, gk in zip(names, g)}
+                loss = loss.detach()
+            if edge_samples:
+                grads = _add_boundary_gradients(
+                    grads, merge_scene(scene, trainable), basis, params,
+                    target, frame_index, edge_samples, topology, mesh)
+        with span("train.optimizer"):
+            for k, p in trainable.items():
+                p.grad = grads[k]
+            opt_state.step()
         return trainable, opt_state, loss
 
     return init_fn, step_fn

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.metrics import span
 from .png import encode_png
 
 
@@ -29,10 +30,12 @@ def linear_to_srgb(x: np.ndarray) -> np.ndarray:
 
 def to_uint8(img, flip: bool = True) -> np.ndarray:
     """(H, W, 3) linear float → uint8 sRGB, top row first."""
-    img = _host(img)
-    if flip:
-        img = img[::-1]
-    return (linear_to_srgb(img) * 255.0 + 0.5).astype(np.uint8)
+    with span("image.to_host"):
+        img = _host(img)
+    with span("image.encode"):
+        if flip:
+            img = img[::-1]
+        return (linear_to_srgb(img) * 255.0 + 0.5).astype(np.uint8)
 
 
 def write_png(path: str, img, flip: bool = True) -> None:

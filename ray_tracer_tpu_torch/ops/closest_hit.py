@@ -43,6 +43,7 @@ import functools
 import torch
 
 from ..scene import Scene
+from ..utils.metrics import span
 from .intersect import _pack_attrs, attr_width, cross, merged_width
 
 CLUSTER = 64           # triangles per culling cluster (the kernel's kCluster)
@@ -259,7 +260,8 @@ def scene_planes(scene: Scene) -> ScenePlanes:
     entry = _plane_cache.get(scene.device)
     if entry is None or entry[0] != key:
         # detached aliases share storage and version with the leaves
-        entry = (key, [x.detach() for x in leaves], ScenePlanes(scene))
+        with span("planes.pack"):
+            entry = (key, [x.detach() for x in leaves], ScenePlanes(scene))
         if _scope_depth:
             _plane_cache[scene.device] = entry
         scene_planes.packs += 1

@@ -23,6 +23,9 @@ Progressive accumulation:
     else:        image = frame_img
 
 Everything runs on the scene's device; the camera basis is moved there.
+Spans (``utils/metrics.span``): ``render.frame`` a frame, ``render.bounce``
+a segment, and inside it ``render.intersect`` and ``render.scatter``; the
+segment's self time is its shading.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from .ops.intersect import cross, intersect, occluded, resolve_backend
 from .scene import Scene
 from .utils.bounds import clip, maximum, minimum
 from .utils.config import RenderParams
+from .utils.metrics import span
 
 
 def resolved_backend(params: RenderParams, scene: Scene) -> str:
@@ -215,6 +219,7 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
     table = build_light_table(scene) if params.nee else None
     aabb = _scene_aabb(scene) if compaction == "morton" else None
 
+    @span("render.bounce")
     def bounce(seg, o, d, throughput, incoming, alive, emission_ok,
                prev_pdf, state, slot):
         if compaction:
@@ -228,15 +233,17 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
                 None if x is None else x.index_select(0, order)
                 for x in (o, d, throughput, incoming, alive, emission_ok,
                           prev_pdf, state, slot))
-        h = intersect(scene, o, d, t_min=params.t_min, backend=backend,
-                      alive=alive)
+        with span("render.intersect"):
+            h = intersect(scene, o, d, t_min=params.t_min, backend=backend,
+                          alive=alive)
         active_hit = (alive & h.hit)[:, None]
         active_miss = (alive & ~h.hit)[:, None]
 
         # scatter every lane (branchless); only active-hit lanes keep it
-        state, new_dir, is_dielectric = materials.scatter(
-            state, d, h.normal, h.smoothness,
-            cosine_sampling=params.cosine_sampling, share_tile=share)
+        with span("render.scatter"):
+            state, new_dir, is_dielectric = materials.scatter(
+                state, d, h.normal, h.smoothness,
+                cosine_sampling=params.cosine_sampling, share_tile=share)
         albedo = torch.where(is_dielectric[:, None], 1.0, h.albedo)
 
         emitted = h.emission * h.emission_strength[:, None]
@@ -391,30 +398,31 @@ def render_frame(scene: Scene, basis: CameraBasis, params: RenderParams,
     packages put the same pixels in the same share tiles). With
     ``params.chunk_pixels > 0`` the frame is traced in sequential pixel
     chunks."""
-    device = scene.device
-    basis = basis.to(device)
-    W, H = params.width, params.height
-    n = H * W
-    blocked = (resolved_backend(params, scene) == "cuda"
-               or params.coherent_scatter)
-    if blocked:
-        pixel_ids, inverse = _blocked_ids(W, H, device)
-    else:
-        pixel_ids = torch.arange(n, dtype=torch.int64, device=device)
-    chunk = params.chunk_pixels
-    if chunk and chunk < n:
-        if n % chunk:
-            # pad to whole chunks; surplus lanes repeat the last pixel
-            pixel_ids = torch.cat([pixel_ids, pixel_ids.new_full(
-                (chunk - n % chunk,), n - 1)])
-        img = torch.cat([
-            render_pixels(scene, basis, params, frame_index, ids)
-            for ids in pixel_ids.split(chunk)])[:n]
-    else:
-        img = render_pixels(scene, basis, params, frame_index, pixel_ids)
-    if blocked:
-        img = _unblock(img, inverse, W, H)   # back to raster order
-    return img.reshape(H, W, 3)
+    with span("render.frame", request=frame_index):
+        device = scene.device
+        basis = basis.to(device)
+        W, H = params.width, params.height
+        n = H * W
+        blocked = (resolved_backend(params, scene) == "cuda"
+                   or params.coherent_scatter)
+        if blocked:
+            pixel_ids, inverse = _blocked_ids(W, H, device)
+        else:
+            pixel_ids = torch.arange(n, dtype=torch.int64, device=device)
+        chunk = params.chunk_pixels
+        if chunk and chunk < n:
+            if n % chunk:
+                # pad to whole chunks; surplus lanes repeat the last pixel
+                pixel_ids = torch.cat([pixel_ids, pixel_ids.new_full(
+                    (chunk - n % chunk,), n - 1)])
+            img = torch.cat([
+                render_pixels(scene, basis, params, frame_index, ids)
+                for ids in pixel_ids.split(chunk)])[:n]
+        else:
+            img = render_pixels(scene, basis, params, frame_index, pixel_ids)
+        if blocked:
+            img = _unblock(img, inverse, W, H)   # back to raster order
+        return img.reshape(H, W, 3)
 
 
 @plane_scope()

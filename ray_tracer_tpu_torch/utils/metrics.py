@@ -1,14 +1,16 @@
-"""Host-side metrics: frame clocks and stage timers.
+"""Host-side metrics: frame clocks, stage timers and spans.
 
 Port of ``ray_tracer_tpu.utils.metrics``, shared by the command line, the
 viewer and ``chip_smoke.py``:
 
-  * ``FrameClock``: ring buffer of recent frame times with mean/p50/p95
-    and ray segments per second derived from RenderParams (the viewer's
-    status line);
+  * ``FrameClock``: ring buffer of recent frame times with their mean and
+    rate (the viewer's status line);
   * ``StageTimer``: named wall-clock stages (build / render / checkpoint /
     io) accumulated through context managers and emitted through
-    ``logging`` (logger ``ray_tracer_tpu_torch.metrics``).
+    ``logging`` (logger ``ray_tracer_tpu_torch.metrics``);
+  * ``span``: named intervals at the port's layer boundaries (``SPANS``),
+    off unless ``tracing(True)``; ``span_totals()`` sums them by name and
+    ``span_records()`` keeps the latest ones.
 
 Difference from the reference: PyTorch returns before a CUDA device
 finishes, so a host clock around a stage measures only what the stage
@@ -17,16 +19,19 @@ synchronizes the current device when a stage starts and when it ends, so
 a stage's time includes the device work issued inside it and none issued
 before it. ``FrameClock`` records what its caller measured (the viewer's
 frame ends in a copy of the image to the host, which waits for the
-device).
+device). A span never synchronizes: its host time is what its layer took
+to enqueue, and a stream span marks the CUDA stream with a pair of events
+whose elapsed time is read once both have completed.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import time
 from collections import deque
-from typing import Dict
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -38,17 +43,6 @@ class FrameClock:
 
     def __init__(self, window: int = 120):
         self._dts = deque(maxlen=window)
-        self._t_last = None
-
-    def tick(self) -> float:
-        """Mark a frame boundary; returns the dt (s) since the last tick
-        (0.0 on the first)."""
-        now = time.perf_counter()
-        dt = 0.0 if self._t_last is None else now - self._t_last
-        self._t_last = now
-        if dt > 0.0:
-            self._dts.append(dt)
-        return dt
 
     def record(self, dt_s: float) -> None:
         """Record an externally measured frame time."""
@@ -59,44 +53,14 @@ class FrameClock:
     def count(self) -> int:
         return len(self._dts)
 
-    def _sorted(self):
-        return sorted(self._dts)
-
     @property
     def mean_ms(self) -> float:
         return 1e3 * sum(self._dts) / len(self._dts) if self._dts else 0.0
 
     @property
-    def p50_ms(self) -> float:
-        s = self._sorted()
-        return 1e3 * s[len(s) // 2] if s else 0.0
-
-    @property
-    def p95_ms(self) -> float:
-        s = self._sorted()
-        return 1e3 * s[min(len(s) - 1, int(len(s) * 0.95))] if s else 0.0
-
-    @property
     def fps(self) -> float:
         m = self.mean_ms
         return 1e3 / m if m > 0 else 0.0
-
-    def segments_per_s(self, params) -> float:
-        """Traced ray segments per second at the current mean frame time
-        (width*height*rpp*(bounces+1) per frame)."""
-        m = self.mean_ms
-        if m <= 0:
-            return 0.0
-        segs = (params.width * params.height * params.rays_per_pixel
-                * (params.bounces + 1))
-        return segs / (m * 1e-3)
-
-    def summary(self, params=None) -> str:
-        s = (f"{self.mean_ms:.1f} ms/frame (p50 {self.p50_ms:.1f}, "
-             f"p95 {self.p95_ms:.1f}, {self.fps:.2f} fps")
-        if params is not None:
-            s += f", {self.segments_per_s(params) / 1e6:.1f} M segs/s"
-        return s + f", n={self.count})"
 
 
 def _sync() -> None:
@@ -138,3 +102,197 @@ class StageTimer:
     def log(self, level: int = logging.INFO) -> None:
         if self.totals:
             logger.log(level, "stages: %s", self.format())
+
+
+# -- spans ---------------------------------------------------------------------
+
+# Every span of the port by name → whether it also times the CUDA stream.
+# ``span_totals()`` carries each of them from the start, so a difference of
+# two readings never misses a key.
+SPANS: Dict[str, bool] = {
+    "render.frame": False,       # renderer.render_frame
+    "render.bounce": False,      # one segment of renderer.trace; self: shading
+    "render.intersect": False,   # its closest-hit query and hit rows
+    "render.scatter": False,     # its materials.scatter
+    "planes.pack": False,        # ops.closest_hit.scene_planes packing anew
+    "train.step": True,          # grad.inverse.make_train_step's step_fn
+    "train.forward": True,       # the loss (or the chunked value and grad)
+    "train.backward": True,      # autograd's gradient and the edge term
+    "train.optimizer": True,     # the gradients handed over, the step
+    "viewer.frame": False,       # viewer.ViewerCore.frame
+    "image.to_host": False,      # io.image: the copy to the host
+    "image.encode": False,       # io.image: flip, sRGB curve, uint8
+}
+SPAN_RING = 1 << 15              # closed spans kept by span_records()
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. ``seq`` numbers spans in the order they opened;
+    ``parent`` is the ``seq`` of the span open around it (None at the
+    top); ``request`` is the frame or step it served, the outermost
+    span's where that gave one. Times are ``time.time_ns()``, the clock
+    torch's profiler stamps its events with (an event's ``time_range`` in
+    microseconds after ``kineto_results.trace_start_ns()``)."""
+    seq: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    request: Optional[int]
+
+
+class _Spans:
+    """The process's span state: the switch, the open spans, the totals
+    by name ([count, host ns, self ns, stream ms, stream pairs]), the ring
+    of closed spans and the stream pairs not yet read. One thread opens
+    and closes spans at a time: the caller's, or autograd's while the
+    caller waits in its backward (a recomputed segment under ``remat``)."""
+
+    def __init__(self):
+        self.on = False
+        self.open: List["_Span"] = []
+        self.totals = {name: [0, 0, 0, 0.0, 0] for name in SPANS}
+        self.ring = deque(maxlen=SPAN_RING)
+        self.pending = []
+        self.seq = 0
+
+    def read_stream(self):
+        """Add the elapsed time of every pair whose events have completed;
+        keep the others. Queries only: nothing waits for the device."""
+        left = []
+        for total, start, end in self.pending:
+            if end.query() and start.query():
+                total[3] += start.elapsed_time(end)
+                total[4] += 1
+            else:
+                left.append((total, start, end))
+        self.pending = left
+
+
+_spans = _Spans()
+
+
+def _wrap(name: str, fn):
+    """``fn`` run inside ``span(name)``, decided at each call."""
+    @functools.wraps(fn)
+    def spanned(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+    return spanned
+
+
+class _Off:
+    """A declared span while tracing is off: a context that does nothing,
+    one per name, shared by every call."""
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        return _wrap(self.name, fn)
+
+
+_OFF = {name: _Off(name) for name in SPANS}
+
+
+class _Span:
+    """An open span while tracing is on."""
+    __slots__ = ("name", "request", "seq", "parent", "start", "children",
+                 "event")
+
+    def __init__(self, name: str, request):
+        self.name = name
+        self.request = request
+
+    def __call__(self, fn):
+        return _wrap(self.name, fn)
+
+    def __enter__(self):
+        s = _spans
+        self.parent = s.open[-1] if s.open else None
+        if self.parent is not None and self.parent.request is not None:
+            self.request = self.parent.request
+        s.seq += 1
+        self.seq = s.seq
+        self.children = 0
+        self.event = None
+        if SPANS[self.name] and torch.cuda.is_initialized():
+            self.event = torch.cuda.Event(enable_timing=True)
+            self.event.record()
+        s.open.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        s = _spans
+        s.open.pop()
+        took = end - self.start
+        total = s.totals[self.name]
+        total[0] += 1
+        total[1] += took
+        total[2] += took - self.children
+        parent = self.parent
+        if parent is not None:
+            parent.children += took
+        if self.event is not None:
+            stop = torch.cuda.Event(enable_timing=True)
+            stop.record()
+            s.pending.append((total, self.event, stop))
+            if len(s.pending) >= 64:
+                s.read_stream()
+        s.ring.append(SpanRecord(self.seq, self.name, self.start, end,
+                                 None if parent is None else parent.seq,
+                                 self.request))
+        return False
+
+
+def span(name: str, request: Optional[int] = None):
+    """A context manager (or decorator) timing the layer ``name`` of
+    ``SPANS``; ``request`` is the frame or step it serves, kept where no
+    enclosing span gave one. Off (the default) it costs a flag check and
+    returns a shared context that does nothing. On, it adds to the name's
+    count, host time and self time (host time less its child spans'), and
+    keeps a ``SpanRecord``; a stream span on a CUDA process also records an
+    event pair on the current stream (``span_totals``). Nothing enters
+    torch's profiler. A name not in ``SPANS`` raises KeyError, on or off
+    (on, when the span is entered)."""
+    if not _spans.on:
+        return _OFF[name]
+    return _Span(name, request)
+
+
+def tracing(on: bool) -> None:
+    """Switch the spans on or off."""
+    _spans.on = bool(on)
+
+
+def span_totals() -> Dict[str, float]:
+    """Every declared span's totals since the process started: for each
+    name ``<name>.count``, ``.host_ms`` and ``.self_ms``, and for a stream
+    span ``.stream_ms`` and ``.stream_n``, the milliseconds and number of
+    its event pairs read so far (pairs still in flight are read by a
+    later call; 0 without CUDA). Zero where a span never ran."""
+    _spans.read_stream()
+    out = {}
+    for name, stream in SPANS.items():
+        count, host_ns, self_ns, stream_ms, stream_n = _spans.totals[name]
+        out[f"{name}.count"] = count
+        out[f"{name}.host_ms"] = host_ns / 1e6
+        out[f"{name}.self_ms"] = self_ns / 1e6
+        if stream:
+            out[f"{name}.stream_ms"] = stream_ms
+            out[f"{name}.stream_n"] = stream_n
+    return out
+
+
+def span_records() -> List[SpanRecord]:
+    """The latest ``SPAN_RING`` closed spans, oldest first."""
+    return list(_spans.ring)

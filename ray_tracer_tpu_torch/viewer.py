@@ -32,7 +32,7 @@ from .ops.closest_hit import plane_scope
 from .renderer import Renderer
 from .scene import SCENE_IDS, builtin_scene
 from .utils.config import RenderParams
-from .utils.metrics import FrameClock
+from .utils.metrics import FrameClock, span
 
 # the focus and aperture keys' steps, within the imgui sliders' ranges
 FOCUS_STEP, FOCUS_RANGE = 0.25, (0.0, 10.0)
@@ -52,6 +52,7 @@ class ViewerCore:
         self._running = True
         self._dt = 1.0 / 30.0
         self.clock = FrameClock()
+        self.frames_shown = 0     # frames returned: the spans' request id
 
     # -- input routing (the reference's Context::input) -------------------
 
@@ -158,14 +159,17 @@ class ViewerCore:
         (uint8 image on the host, seconds); the seconds include the copy
         to the host, which waits for the device, and go to the clock."""
         t0 = time.perf_counter()
-        with plane_scope():     # the frame and its guides share one packing
-            img = self.renderer.step()
-            if self.denoise:
-                from .denoise import denoise_render
-                img = denoise_render(
-                    self.renderer.scene, camera_basis(self.renderer.camera),
-                    self.renderer.params, img, iterations=self.denoise)
-        rgb = to_uint8(img)
+        self.frames_shown += 1
+        with span("viewer.frame", request=self.frames_shown):
+            with plane_scope():  # the frame and its guides share one packing
+                img = self.renderer.step()
+                if self.denoise:
+                    from .denoise import denoise_render
+                    img = denoise_render(
+                        self.renderer.scene,
+                        camera_basis(self.renderer.camera),
+                        self.renderer.params, img, iterations=self.denoise)
+            rgb = to_uint8(img)
         dt = time.perf_counter() - t0
         self._dt = max(dt, 1e-3)
         self.clock.record(dt)

@@ -1,0 +1,9 @@
+"""CUDA stream milliseconds a step from the start to the end of the span
+``train.forward`` (the loss's render): its device work and the idle
+inside it. None where no event pair was timed (no card)."""
+
+from rtbench.spans import counters, per_step  # noqa: F401
+
+
+def read(trace):
+    return per_step(trace, "train.forward.stream_ms", stream=True)

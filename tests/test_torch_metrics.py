@@ -6,7 +6,6 @@ import logging
 import pytest
 import torch
 
-import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu_torch.utils.metrics import FrameClock, StageTimer
 
 
@@ -16,13 +15,9 @@ def test_frame_clock_stats():
         c.record(dt)
     assert c.count == 4
     assert abs(c.mean_ms - 25.0) < 1e-6
-    assert c.p50_ms in (20.0, 30.0)
-    assert c.p95_ms == 40.0
     assert abs(c.fps - 40.0) < 1e-6
-    p = trt.RenderParams(width=100, height=100, bounces=3, rays_per_pixel=2)
-    # 100*100*2*4 segments / 25 ms
-    assert abs(c.segments_per_s(p) - 80000 / 0.025) < 1.0
-    assert "M segs/s" in c.summary(p)
+    c.record(0.0)                    # no time measured: not a frame
+    assert c.count == 4
 
 
 def test_frame_clock_window_and_tick():
@@ -31,8 +26,7 @@ def test_frame_clock_window_and_tick():
         c.record(dt)
     assert c.count == 2 and abs(c.mean_ms - 2500.0) < 1e-6
     c2 = FrameClock()
-    assert c2.tick() == 0.0          # first tick has no interval
-    assert c2.fps == 0.0             # no samples yet: no division by zero
+    assert c2.mean_ms == 0.0 and c2.fps == 0.0   # no samples: no division
 
 
 def test_stage_timer_accumulates_and_logs(caplog):
