@@ -16,7 +16,11 @@ camera and the metrics (phase 12), and the rigid recovery loop with the
 repairs of the renderer's safe points and of the plane cache's lifetime
 (phase 13). It imports nothing of JAX. Each path is
 driven with the kernels' launch counts set to 0 just before it and read
-just after.
+just after. On untextured scenes each closest-hit launch that copies rows
+out brings one launch of the hit-record kernel (the winner recompute), and
+each backward through it one of its VJP kernel, as many as the
+scatter-add's: every count below holds them so, and the textured paths
+to none.
 Phases, each printing one line (phase 1 one per kernel):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -48,8 +52,8 @@ Phases, each printing one line (phase 1 one per kernel):
      "auto" (which resolves to the kernel); the closest-hit kernel's launch
      count must rise by exactly frames x (bounces + 1), the image must be
      finite and not constant; segments/s timed with CUDA events after a
-     warm-up frame (median and best of 5 renders); no other kernel may
-     launch on this forward path (the scene is below the streaming
+     warm-up frame (median and best of 5 renders); no other kernel but
+     the hit-record kernel, once a segment, may launch on this forward path (the scene is below the streaming
      kernel's crossover), and the render must pack the scene's planes
      exactly once (they live one top-level call; so in phases 7, 8 and
      9);
@@ -119,6 +123,19 @@ Phases, each printing one line (phase 1 one per kernel):
      packing (textured, textured, untextured, untextured), the bound with
      the 40-column row and 48-column planes, registers, shared memory and
      blocks per SM;
+  2f. (run before 3) the hit-record kernels (``ops/hit_record.py``) on the
+     closest-hit kernel's winners of terrain's 1080p primary wavefront and
+     of a main-path frame's bounce-1 wavefront (dead lanes too): the
+     forward's eight outputs bit-equal to
+     ``intersect.hit_attributes_from_rows``, the VJP through
+     ``intersect._HitRecord`` within rtol 1e-5 plus 2e-4 x the largest
+     cotangent of ``torch.autograd.grad`` through it (seeded cotangents on
+     all seven float outputs), plus that autograd's own distance from the
+     same in float64 on each entry (a ray grazing a sphere moves by more
+     under the forward's float32 rounding); each timed beside its plain
+     version, with
+     its bound from the lanes' own ids (26 row columns read on a triangle
+     lane, 12 on the others);
   4. path parity: one 256x144 frame through the kernel and through the
      plain oracle (backend "torch") on the same CUDA tensors; the fraction
      of pixels off by more than 2e-2 must be below 2e-3;
@@ -311,6 +328,7 @@ from ray_tracer_tpu_torch.io.png import decode_png, encode_png
 from ray_tracer_tpu_torch.ops import anyhit as ah
 from ray_tracer_tpu_torch.ops import blocked_hit as bh
 from ray_tracer_tpu_torch.ops import closest_hit as ch
+from ray_tracer_tpu_torch.ops import hit_record as hr
 from ray_tracer_tpu_torch.ops import intersect
 from ray_tracer_tpu_torch.ops import scatter_rows as sc
 from ray_tracer_tpu_torch.parallel import (distributed, make_mesh,
@@ -344,6 +362,9 @@ ALBEDOS = ("sphere_albedo", "tri_albedo")
 # kernel and index_add_) are held to the exact one, not to each other
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-6
 GRAD_PARITY = 1e-4     # per leaf, x that leaf's max |g|
+# the hit-record VJP against autograd through the plain recompute: rtol
+# with a floor x the largest cotangent (tests/test_torch_hit_record.py's)
+HIT_RECORD_RTOL, HIT_RECORD_FLOOR = 1e-5, 2e-4
 NEE = dict(nee=True, mis=True)   # phase 7's knobs on top of PARAMS
 # the NEE variants of phase 4b
 NEE_VARIANTS = {"nee": dict(nee=True), "nee-nomis": dict(nee=True, mis=False),
@@ -376,12 +397,20 @@ KERNELS = {
                         "ray_tracer_tpu/ops/pallas_intersect.py:531"),
     "blocked_hit_tex": ("ray_tracer_tpu_torch/csrc/blocked_hit.cu",
                         "ray_tracer_tpu/ops/pallas_intersect.py:1084"),
+    # the winner recompute from untextured rows and its VJP: no TPU kernel
+    # (the JAX package's hit_attributes_from_rows is elementwise code)
+    "hit_record": ("ray_tracer_tpu_torch/csrc/hit_record.cu",
+                   "ray_tracer_tpu/ops/intersect.py:224"),
+    "hit_record_vjp": ("ray_tracer_tpu_torch/csrc/hit_record.cu",
+                       "ray_tracer_tpu/ops/intersect.py:224"),
 }
 TEXTURED = ("closest_hit_tex", "blocked_hit_tex")
 # launch count name -> (wrapper, its attribute that counts the launches):
 # each kernel's own, "blocked_hit_ids" for the streaming kernel's launches
-# without rows (a part of "blocked_hit") and "scatter_rows_rows" for the
-# scatter-add's row-major form (B5), the backward of the texture fetch
+# without rows (a part of "blocked_hit"), "scatter_rows_rows" for the
+# scatter-add's row-major form (B5), the backward of the texture fetch, and
+# the hit-record kernels: one forward launch a closest-hit launch with
+# untextured rows, one VJP launch a backward through it
 COUNTS = {"closest_hit": (ch.nearest_hit_attrs, "launches"),
           "closest_hit_tex": (ch.nearest_hit_attrs, "tex_launches"),
           "scatter_rows": (sc.scatter_rows_soa, "launches"),
@@ -389,7 +418,9 @@ COUNTS = {"closest_hit": (ch.nearest_hit_attrs, "launches"),
           "any_hit": (ah.anyhit, "launches"),
           "blocked_hit": (bh.nearest_hit_blocked, "launches"),
           "blocked_hit_tex": (bh.nearest_hit_blocked, "tex_launches"),
-          "blocked_hit_ids": (bh.nearest_hit_blocked, "ids_launches")}
+          "blocked_hit_ids": (bh.nearest_hit_blocked, "ids_launches"),
+          "hit_record": (hr.hit_record, "launches"),
+          "hit_record_vjp": (hr.hit_record_vjp, "launches")}
 LARGE_N = 310          # terrain190k: 2 (310 - 1)^2 = 190,962 triangles
 LARGE_TRAIN_STEPS = 3  # phase 8's timed training steps
 HUGE_N = 520           # 538,722 triangles: 66 blocks of 8192, two rounds
@@ -1108,12 +1139,14 @@ def phase3_main_path(device, terrain, card, profile, out_dir):
         raise AssertionError("backend 'auto' did not resolve to cuda")
     img, counts, runs, enqueue_s = render_path(
         "terrain", scene, cam, params,
-        launches(closest_hit=FRAMES * (BOUNCES + 1)))
+        launches(closest_hit=FRAMES * (BOUNCES + 1),
+                 hit_record=FRAMES * (BOUNCES + 1)))
     segs = W * H * 1 * (BOUNCES + 1) * FRAMES
     print(f"phase 3 main path: terrain {scene.num_tris} tris {W}x{H} "
           f"b{BOUNCES} {FRAMES} frames: {rate_text(runs, segs)}; host "
           f"enqueue {enqueue_s:.4f} s of the first), {counts['closest_hit']} "
-          f"closest-hit and {counts['blocked_hit']} streaming launches, "
+          f"closest-hit, {counts['blocked_hit']} streaming and "
+          f"{counts['hit_record']} hit-record launches, "
           f"image mean {float(img.mean()):.4f} | {card}", flush=True)
     if out_dir:
         np.save(os.path.join(out_dir, "chip_smoke_terrain.npy"),
@@ -1129,7 +1162,7 @@ def phase3_main_path(device, terrain, card, profile, out_dir):
         print(f"profile: room {W}x{H} {FRAMES} frames "
               f"{segs / room_s / 1e6:.3f} M segments/s", flush=True)
         profile_frame("room", room, room_basis, params, out_dir)
-    return counts["closest_hit"], segs / float(np.median(runs))
+    return counts, segs / float(np.median(runs))
 
 
 def profile_frame(name, scene, basis, params, out_dir):
@@ -1675,15 +1708,19 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
     scatter-add (with ``textured`` also bounces * 2 + 1 of its row-major
     form: the backward of the albedo fetch of every segment and of the
     normal-map fetch of every segment but the last, whose normal scatters
-    no further ray) and to one packing of the scene's planes (the
+    no further ray; without, bounces + 1 of each hit-record kernel) and to
+    one packing of the scene's planes (the
     optimizer moved the scene);
     gradients finite, tri_v0's (textures', with ``textured``) and
     tri_albedo's not all zero, the last loss below the first → (line, the
     launches summed over all steps, the median s/step)."""
     step_fn, (trainable, opt, start, basis, target, _) = train_setup(
         scene, cam, textured)
-    per_step = launches(**{hit: BOUNCES + 1, "scatter_rows": BOUNCES + 1},
-                        scatter_rows_rows=2 * BOUNCES + 1 if textured else 0)
+    seg = BOUNCES + 1
+    per_step = launches(**{hit: seg, "scatter_rows": seg},
+                        scatter_rows_rows=2 * BOUNCES + 1 if textured else 0,
+                        hit_record=0 if textured else seg,
+                        hit_record_vjp=0 if textured else seg)
     totals = dict.fromkeys(per_step, 0)
     losses, device_s, host_s = [], [], []
     torch.cuda.synchronize()
@@ -1749,7 +1786,7 @@ def phase5_training(device, terrain, card, profile, out_dir):
     line, totals, med = train_path("terrain", *terrain, card, TRAIN_STEPS,
                                    "closest_hit", profile, out_dir)
     print(f"phase 5 training path: {line}", flush=True)
-    return totals["scatter_rows"], med
+    return totals, med
 
 
 def train_optimizer(leaves, fields=DEFAULT_TRAINABLE):
@@ -1917,7 +1954,8 @@ def phase7_nee_path(device, terrain_nee, card, profile, out_dir):
     if resolved_backend(params, terrain_nee[0]) != "cuda":
         raise AssertionError("backend 'auto' did not resolve to cuda")
     want = launches(closest_hit=FRAMES * (BOUNCES + 1),
-                    any_hit=FRAMES * BOUNCES)
+                    any_hit=FRAMES * BOUNCES,
+                    hit_record=FRAMES * (BOUNCES + 1))
     counts = nee_render("7", "terrain_nee", *terrain_nee, params, want, card,
                         profile, out_dir)
     room = rt.builtin_scene("room", aspect=W / H, device=device)
@@ -2082,7 +2120,8 @@ def phase8_large_scene(device, large, large_nee, build_s, card, profile,
         raise AssertionError("terrain190k does not take the streaming kernel")
     img, counts, runs, enqueue_s = render_path(
         "terrain190k", scene, cam, params,
-        launches(blocked_hit=FRAMES * (BOUNCES + 1)))
+        launches(blocked_hit=FRAMES * (BOUNCES + 1),
+                 hit_record=FRAMES * (BOUNCES + 1)))
     segs = W * H * 1 * (BOUNCES + 1) * FRAMES
     print(f"phase 8 large-scene forward: terrain190k {scene.num_tris} tris "
           f"({scene.padded_tris} padded, {bh.block_layout(scene)[2]} blocks "
@@ -2101,7 +2140,8 @@ def phase8_large_scene(device, large, large_nee, build_s, card, profile,
     nee_render("8", "terrain190k_nee", *large_nee,
                rt.RenderParams(**PARAMS, **NEE),
                launches(blocked_hit=FRAMES * (BOUNCES + 1) + FRAMES * BOUNCES,
-                        blocked_hit_ids=FRAMES * BOUNCES),
+                        blocked_hit_ids=FRAMES * BOUNCES,
+                        hit_record=FRAMES * (BOUNCES + 1)),
                card, profile, out_dir)
     line, _, _ = train_path("terrain190k", scene, cam, card,
                             LARGE_TRAIN_STEPS, "blocked_hit", False, None)
@@ -2234,6 +2274,140 @@ def phase2e_textured_vs_plain(device, terrain, terrain_tex, large, large_tex,
     return out
 
 
+HIT_FIELDS = ("t", "point", "normal", "albedo", "emission",
+              "emission_strength", "smoothness", "hit")
+
+
+def recompute_bound(ids, padded_spheres, vjp=False):
+    """The hit-record kernels' bound on these lanes: each reads its
+    branch's row columns (26 on a triangle lane; 12 on a sphere lane, and
+    on a miss or dead lane, whose id is 0), o, d, its id and its miss flag;
+    the forward writes 15 floats and the hit flag, the VJP reads the seven
+    outputs' 15 cotangents and writes the rows' 26 cotangents, o's and
+    d's."""
+    R = ids.numel()
+    tri = int((ids >= padded_spheres).sum())
+    lane = 24 + 4 + 1 + (4 * (15 + 26 + 6) if vjp else 4 * 15 + 1)
+    return bound(4 * (26 * tri + 12 * (R - tri)) + R * lane, 0), tri
+
+
+def recompute_check(label, scene, o, d, alive):
+    """The hit-record kernels on one wavefront's winners (the closest-hit
+    kernel's rows): the forward's eight outputs bit-equal to
+    ``intersect.hit_attributes_from_rows``; the VJP through
+    ``intersect._HitRecord`` against ``torch.autograd.grad`` of the plain
+    version, seeded normal cotangents on all seven float outputs, each
+    entry of the rows', o's and d's cotangents within HIT_RECORD_RTOL of
+    autograd's plus HIT_RECORD_FLOOR of the largest cotangent plus
+    autograd's own distance there from the same autograd in float64 (on
+    a ray grazing a sphere the float32 forward's rounding moves the
+    gradient by more than the floor: the float32 oracle fixes such an
+    entry no closer than that); each timed (CUDA events), beside its plain
+    version and its bound → (the forward's and the VJP's timing entries,
+    text)."""
+    S = scene.padded_spheres
+    t, ids, rows = ch.nearest_hit_attrs(scene, o, d, 1e-4, alive)
+    miss = torch.isinf(t)
+    args = (rows, o, d, ids, miss)
+    R = ids.numel()
+    got = hr.hit_record(*args, S)
+    want = intersect.hit_attributes_from_rows(scene, *args, 1e-4)
+    off = {}
+    for f, g in zip(HIT_FIELDS, got):
+        n = int((g != getattr(want, f)).reshape(R, -1).any(1).sum())
+        if n:
+            off[f] = n
+    if off:
+        raise AssertionError(f"hit record {label}: lanes off the plain "
+                             f"version {off}")
+    del want
+    gen = torch.Generator(device=o.device).manual_seed(17)
+    cots = [torch.randn(g.shape, generator=gen, device=o.device)
+            for g in got[:7]]
+    cmax = max(float(c.abs().max()) for c in cots)
+    leaves = {dt: [x.detach().to(dt).clone().requires_grad_(True)
+                   for x in (rows, o, d)]
+              for dt in (torch.float32, torch.float64)}
+    f32 = leaves[torch.float32]
+
+    def kernel():
+        return intersect._HitRecord.apply(*f32, ids, miss, S)[:7]
+
+    def plain(dt=torch.float32):
+        h = intersect.hit_attributes_from_rows(scene, *leaves[dt], ids, miss,
+                                               1e-4)
+        return [getattr(h, f) for f in HIT_FIELDS[:7]]
+
+    def grads(fn, dt=torch.float32):
+        return torch.autograd.grad(fn(), leaves[dt],
+                                   [c.to(dt) for c in cots])
+
+    worst, widened, err, past, over = 0.0, 0.0, 0.0, 0, 0
+    for name, a, b, x in zip(("rows", "o", "d"), grads(kernel), grads(plain),
+                             grads(lambda: plain(torch.float64),
+                                   torch.float64)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"hit-record VJP {label}: {name}'s "
+                                 f"cotangent is not finite")
+        gap = (a - b).abs() - HIT_RECORD_RTOL * b.abs()
+        wide = gap.double() - (b.double() - x).abs()
+        err = max(err, float((a - b).abs().max()))
+        worst = max(worst, float(gap.max()) / cmax)
+        widened = max(widened, float(wide.max()) / cmax)
+        past += int((gap > HIT_RECORD_FLOOR * cmax).sum())
+        over += int((wide > HIT_RECORD_FLOOR * cmax).sum())
+    if over:
+        raise AssertionError(f"hit-record VJP {label}: {over} entries past "
+                             f"rtol {HIT_RECORD_RTOL} + {HIT_RECORD_FLOOR} x "
+                             f"the largest cotangent + float32 autograd's "
+                             f"distance from float64 (worst {widened:.3g})")
+    fwd_ms = cuda_ms(lambda: hr.hit_record(*args, S), 20)
+    plain_ms = cuda_ms(lambda: intersect.hit_attributes_from_rows(
+        scene, *args, 1e-4), 3)
+    vjp_ms = cuda_ms(lambda: hr.hit_record_vjp(*args, S, cots,
+                                               (True, True, True)), 20)
+    pair_ms = cuda_ms(lambda: grads(kernel), 10)
+    plain_pair_ms = cuda_ms(lambda: grads(plain), 3)
+    fb, tri = recompute_bound(ids, S)
+    vb, _ = recompute_bound(ids, S, vjp=True)
+    hits = int((~miss).sum())
+    fwd = dict(ms=fwd_ms, plain_ms=plain_ms, plain_rays=R, max_abs_err=0.0,
+               mismatches=0, library_ms=None, **fb)
+    vjp = dict(ms=vjp_ms, plain_ms=plain_pair_ms, plain_rays=R,
+               max_abs_err=err, mismatches=over, library_ms=None, **vb)
+    return fwd, vjp, (
+        f"{label} {R} lanes ({hits} hits, {tri} on triangles, "
+        f"{R - tri} sphere, miss or dead lanes): forward bit-equal in all "
+        f"{len(HIT_FIELDS)} outputs, {fwd_ms:.4f} ms (bound "
+        f"{fb['bound_ms']:.4f} ms by {fb['bytes']} B: "
+        f"{fb['bound_ms'] / fwd_ms:.1%}), plain {plain_ms:.3f} ms; VJP "
+        f"against float32 autograd: worst gap past rtol {worst:.3g} x the "
+        f"largest cotangent ({past} entries past {HIT_RECORD_FLOOR}), less "
+        f"float32 autograd's distance from float64 {widened:.3g} (gate "
+        f"{HIT_RECORD_FLOOR}), max |diff| {err:.3g}, {vjp_ms:.4f} ms (bound "
+        f"{vb['bound_ms']:.4f} ms by {vb['bytes']} B: "
+        f"{vb['bound_ms'] / vjp_ms:.1%}); forward + backward through "
+        f"_HitRecord {pair_ms:.3f} ms, autograd through the plain version "
+        f"{plain_pair_ms:.3f} ms")
+
+
+def phase2f_recompute_vs_plain(device, terrain):
+    """The hit-record kernels against the plain recompute and autograd
+    through it (``recompute_check``) on the terrain's 1080p primary
+    wavefront (blocked order, every lane live) and on a main-path frame's
+    bounce-1 wavefront (dead lanes too) → the primary's timing entries of
+    the forward and the VJP."""
+    scene, cam = terrain
+    o, d = primary_wavefront(scene, cam, device)
+    alive = torch.ones(W * H, dtype=torch.bool, device=device)
+    fwd, vjp, text0 = recompute_check("primary", scene, o, d, alive)
+    _, _, text1 = recompute_check("bounce 1", scene, *wavefront(
+        scene, cam, rt.RenderParams(**PARAMS), 1))
+    print(f"phase 2f hit-record kernels vs plain (terrain {W}x{H}): "
+          f"{text0}; {text1}", flush=True)
+    return fwd, vjp
+
+
 def phase9_textured(device, terrain_tex, terrain_nee_tex, large_tex,
                     untextured_rate, card, profile, out_dir):
     """The textured paths: the forward render of terrain_tex through the
@@ -2312,8 +2486,9 @@ EXTRA_TRIALS = 3   # timed renders / steps per variant in phase 10
 
 def aov_path(label, scene, cam, key):
     """Every AOV of ``scene`` at 1920x1080 through ``render_aov``: each
-    call launches kernel ``key`` once and no other kernel; ms of each (CUDA
-    events, after a warm-up call) → text."""
+    call launches kernel ``key`` once and no other kernel but, on an
+    untextured scene, the hit-record kernel once; ms of each (CUDA events,
+    after a warm-up call) → text."""
     basis = rt.camera_basis(cam)
     params = rt.RenderParams(**PARAMS)
     out = []
@@ -2324,7 +2499,8 @@ def aov_path(label, scene, cam, key):
         img = rt.render_aov(scene, basis, params, aov)
         torch.cuda.synchronize()
         counts = read_counts()
-        if counts != launches(**{key: 1}):
+        if counts != launches(**{key: 1},
+                              hit_record=int(key not in TEXTURED)):
             raise AssertionError(f"{label} AOV {aov}: launches {counts}")
         if img.shape[:2] != (H, W) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{label} AOV {aov} is not finite (H, W, C)")
@@ -2406,7 +2582,8 @@ def adaptive_path(scene, cam):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
-    want = launches(closest_hit=ADAPTIVE_FRAMES * (BOUNCES + 1))
+    want = launches(closest_hit=ADAPTIVE_FRAMES * (BOUNCES + 1),
+                    hit_record=ADAPTIVE_FRAMES * (BOUNCES + 1))
     if used != ADAPTIVE_FRAMES or counts != want:
         raise AssertionError(f"adaptive: {used} frames, launches {counts}")
     prog = render_progressive(scene, basis, params, ADAPTIVE_FRAMES)
@@ -2466,7 +2643,8 @@ def qmc_path(scene, cam, card, terrain_rate):
     launches frames x (bounces + 1), finite, not constant) → text."""
     img, counts, runs, _ = render_path(
         "terrain qmc", scene, cam, rt.RenderParams(**PARAMS, qmc=True),
-        launches(closest_hit=FRAMES * (BOUNCES + 1)))
+        launches(closest_hit=FRAMES * (BOUNCES + 1),
+                 hit_record=FRAMES * (BOUNCES + 1)))
     segs = W * H * (BOUNCES + 1) * FRAMES
     rate = segs / float(np.median(runs))
     return (f"{rate_text(runs, segs)}; {rate / terrain_rate:.3f} x phase "
@@ -2725,6 +2903,13 @@ def remat_path(scene, cam, card):
     for remat in (False, True, True, False):
         s, peak, counts = step_times(scene, cam, params.replace(remat=remat),
                                      steps=1)
+        # remat's backward reruns each segment's forward, recompute too
+        seg = (BOUNCES + 1) * (2 if remat else 1)
+        if (counts["hit_record"], counts["hit_record_vjp"]) != (
+                seg, BOUNCES + 1):
+            raise AssertionError(f"remat={remat}: launches {counts}, want "
+                                 f"{seg} hit-record and {BOUNCES + 1} "
+                                 f"hit-record VJP a step")
         steps.setdefault(remat, []).append((s, peak, counts))
         torch.cuda.empty_cache()
     text = []
@@ -2734,8 +2919,10 @@ def remat_path(scene, cam, card):
         text.append(f"remat={remat}: {float(np.median(s)):.4f} s/step "
                     f"({[round(x, 4) for x in s]}), peak "
                     f"{max(x[1] for x in steps[remat]):.3f} GiB, "
-                    f"{c['closest_hit']} closest-hit and "
-                    f"{c['scatter_rows']} scatter-add launches a step")
+                    f"{c['closest_hit']} closest-hit, "
+                    f"{c['scatter_rows']} scatter-add, {c['hit_record']} "
+                    f"hit-record and {c['hit_record_vjp']} hit-record VJP "
+                    f"launches a step")
     return (f"forward bit-equal, gradient worst {worst:.3g} of rtol "
             f"{REMAT_RTOL} / atol {REMAT_ATOL}; " + "; ".join(text)
             + f" | {card}")
@@ -3028,7 +3215,9 @@ def loading_path(device, paths, card):
             ("torus.glb", glb, torus_camera(W / H), "closest_hit_tex")):
         img, c, runs, _ = render_path(
             f"loaded {label}", scene, cam_, params,
-            launches(**{key: FRAMES * (BOUNCES + 1)}))
+            launches(**{key: FRAMES * (BOUNCES + 1)},
+                     hit_record=0 if key in TEXTURED
+                     else FRAMES * (BOUNCES + 1)))
         off, diff = image_parity(f"loaded {label}", scene, cam_)
         out.append(f"{label} {scene.num_tris} tris: {rate_text(runs, segs)}"
                    f"), {c[key]} {key} launches, 256x144 parity frac_off "
@@ -3093,7 +3282,8 @@ def estimator_check(label, scene, cam, params, cot, topo, n_sph):
                                             n_sph, 1)
     families = 1 + (n_sph > 0 and scene.num_spheres > 0)
     key = "closest_hit_tex" if scene.num_textures else "closest_hit"
-    want = launches(**{key: 2 * (params.bounces + 1) * families})
+    n = 2 * (params.bounces + 1) * families
+    want = launches(**{key: n}, hit_record=0 if scene.num_textures else n)
     if counts != want:
         raise AssertionError(f"{label} estimator launches {counts} != {want}")
     ref = edges.gradients_from_draws(scene, basis,
@@ -3133,7 +3323,8 @@ def edge_train_steps(scene, cam, topo, card, phase5_s):
                                        topology=topo)
     trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
     seg = BOUNCES + 1
-    want = launches(closest_hit=seg + seg + 2 * 2 * seg, scatter_rows=seg)
+    want = launches(closest_hit=seg + seg + 2 * 2 * seg, scatter_rows=seg,
+                    hit_record=seg + seg + 2 * 2 * seg, hit_record_vjp=seg)
     times, losses = [], []
     for step in range(1 + EDGE_TRAIN_STEPS):
         reset_counts()
@@ -3233,8 +3424,10 @@ def recovery(label, scene, topo, center, ext, cfg):
     pairs = math.lcm(cfg["views"], cfg["frame_cycle"])
     key = "closest_hit_tex" if scene.num_textures else "closest_hit"
     before = cfg["views"] + seg * min(steps, pairs)
-    want = launches(**{key: before + steps * (seg + 1 + 2 * seg)},
-                    scatter_rows=steps * 2 * seg)
+    n, tex = before + steps * (seg + 1 + 2 * seg), scene.num_textures
+    want = launches(**{key: n}, scatter_rows=steps * 2 * seg,
+                    hit_record=0 if tex else n,
+                    hit_record_vjp=0 if tex else steps * 2 * seg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3384,11 +3577,11 @@ def one_rank_path(device, scenes, card):
     out = []
     for label, (scene, cam), p, want in (
             ("terrain", scenes["terrain"], params,
-             launches(closest_hit=seg)),
+             launches(closest_hit=seg, hit_record=seg)),
             ("terrain190k", scenes["terrain190k"], params,
-             launches(blocked_hit=seg)),
+             launches(blocked_hit=seg, hit_record=seg)),
             ("terrain_nee", scenes["terrain_nee"], params.replace(**NEE),
-             launches(closest_hit=seg, any_hit=BOUNCES))):
+             launches(closest_hit=seg, any_hit=BOUNCES, hit_record=seg))):
         basis = rt.camera_basis(cam)
         want_img = render_frame(scene, basis, p, 0)
         torch.cuda.synchronize()
@@ -3592,7 +3785,8 @@ def two_rank_path(device, terrain, card):
     finally:
         outs = wait_ranks(procs, work)
     lines = [json.loads(o.strip().splitlines()[-1]) for o in outs]
-    want_launches = launches(closest_hit=BOUNCES + 1)
+    want_launches = launches(closest_hit=BOUNCES + 1,
+                             hit_record=BOUNCES + 1)
     for x in lines:
         if x["launches"] != want_launches:
             raise AssertionError(f"two ranks: rank {x['rank']}'s frame "
@@ -3853,7 +4047,8 @@ def pose_path(device, card):
     loss_k, g_k = pose_grads(scene, cam, params.replace(backend="cuda"),
                              start, target)
     counts = read_counts()
-    want = launches(closest_hit=BOUNCES + 1, scatter_rows=BOUNCES + 1)
+    want = launches(closest_hit=BOUNCES + 1, scatter_rows=BOUNCES + 1,
+                    hit_record=BOUNCES + 1, hit_record_vjp=BOUNCES + 1)
     if counts != want:
         raise AssertionError(f"pose gradient: launches {counts}, want {want}")
     loss_p, g_p = pose_grads(scene, cam, params.replace(backend="torch"),
@@ -3970,8 +4165,10 @@ def rigid_run(label, scene, basis, ext, cfg):
     params = invert_teapot.recovery_params(cfg["size"])
     steps, seg = cfg["steps"], params.rays_per_pixel * (params.bounces + 1)
     key = "closest_hit_tex" if scene.num_textures else "closest_hit"
-    want = launches(**{key: 1 + steps * (8 * seg + 1)},
-                    scatter_rows=steps * seg)
+    n, tex = 1 + steps * (8 * seg + 1), scene.num_textures
+    want = launches(**{key: n}, scatter_rows=steps * seg,
+                    hit_record=0 if tex else n,
+                    hit_record_vjp=0 if tex else steps * seg)
     start = (np.float32(0.12 * ext)
              * np.array(cfg["start_dir"], np.float32)).astype(np.float32)
     torch.cuda.synchronize()
@@ -4154,15 +4351,20 @@ def main(argv):
         timing.update(run("2e", phase2e_textured_vs_plain, device, terrain,
                           terrain_tex, large, large_tex, regs,
                           timing["closest_hit"], timing["blocked_hit"]))
+        timing["hit_record"], timing["hit_record_vjp"] = run(
+            "2f", phase2f_recompute_vs_plain, device, terrain)
     torch.cuda.empty_cache()
     counts = {}
-    counts["closest_hit"], terrain_rate = run(
+    main_counts, terrain_rate = run(
         "3", phase3_main_path, device, terrain, card, args.profile, args.out)
+    counts["closest_hit"] = main_counts["closest_hit"]
+    counts["hit_record"] = main_counts["hit_record"]
     run("4", phase4_parity, device, terrain)
     run("4b", phase4b_nee_parity, device, terrain_nee)
-    counts["scatter_rows"], phase5_s = run("5", phase5_training, device,
-                                           terrain, card, args.profile,
-                                           args.out)
+    train_counts, phase5_s = run("5", phase5_training, device, terrain,
+                                 card, args.profile, args.out)
+    counts["scatter_rows"] = train_counts["scatter_rows"]
+    counts["hit_record_vjp"] = train_counts["hit_record_vjp"]
     torch.cuda.empty_cache()
     run("6", phase6_grad_parity, device, terrain)
     run("6b", phase6b_nee_grad_parity, device, terrain_nee)

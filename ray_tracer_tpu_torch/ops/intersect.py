@@ -10,7 +10,10 @@ Port of ``ray_tracer_tpu.ops.intersect``. Two stages:
      scatter-add kernel (``scatter_rows.scatter_rows_soa``);
   2. ``hit_attributes_from_rows``: recomputes t, point, normal and material
      of the winner from its merged-table row, in elementwise tensor code,
-     differentiably in the rays and the rows.
+     differentiably in the rays and the rows. On untextured rows on the
+     card ``fused_intersect`` takes the hit-record kernels instead
+     (``hit_record.hit_record``, bit-equal to it, and its VJP kernel
+     ``hit_record.hit_record_vjp`` as ``_HitRecord``'s backward).
 
 Primitive ids: spheres are ``[0, SP)``, triangles ``[SP, SP + TP)``
 (padded counts); ``t = +inf`` is a miss.
@@ -33,6 +36,7 @@ import torch
 
 from ..scene import TENSOR_FIELDS, Scene
 from ..texture import decode_normal_map, sample_bilinear
+from .hit_record import hit_record, hit_record_vjp, takes
 
 TRI_DET_EPS = 1e-6  # back-face / parallel cutoff
 INF = float("inf")
@@ -338,8 +342,8 @@ class _WinnerRows(torch.autograd.Function):
     of the row cotangents into the table (``scatter_rows_soa``), with miss
     lanes zeroed and routed to the dropped id ``n_rows``. Autograd then
     carries the table's cotangent through ``_pack_attrs`` to the scene
-    leaves. The rays get no gradient here: theirs flows through
-    ``hit_attributes_from_rows``."""
+    leaves. The rays get no gradient here: theirs flows through the
+    winner recompute (``_HitRecord`` or ``hit_attributes_from_rows``)."""
 
     @staticmethod
     def forward(ctx, table, scene, o, d, t_min, alive):
@@ -375,10 +379,53 @@ def _winner_rows(scene, o, d, t_min, alive):
     return _nearest_rows(scene, o, d, t_min, alive)
 
 
+class _HitRecord(torch.autograd.Function):
+    """The winner recompute as the hit-record kernel, differentiable in
+    the rows, o and d: its backward is the VJP kernel, which writes the
+    rows' cotangent once as one (26, R) tensor for ``_WinnerRows``'
+    scatter-add. Cotangents of outputs nobody used arrive as None."""
+
+    @staticmethod
+    def forward(ctx, rows, o, d, prim_id, miss, padded_spheres):
+        out = hit_record(rows, o, d, prim_id, miss, padded_spheres)
+        ctx.mark_non_differentiable(out[-1])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(rows, o, d, prim_id, miss)
+        ctx.padded_spheres = padded_spheres
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rows, o, d, prim_id, miss = ctx.saved_tensors
+        g = hit_record_vjp(rows, o, d, prim_id, miss, ctx.padded_spheres,
+                           grads[:7], ctx.needs_input_grad[:3])
+        return (*g, None, None, None)
+
+
+def _kernel_hit_attributes(scene, rows, o, d, prim_id, miss) -> Hit:
+    """The winner recompute by the hit-record kernels: through
+    ``_HitRecord`` where autograd needs a gradient of the rows or the
+    rays, else the forward kernel alone, with no graph."""
+    args = (rows, o, d, prim_id, miss, scene.padded_spheres)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (rows, o, d)):
+        out = _HitRecord.apply(*args)
+    else:
+        out = hit_record(*args)
+    t, point, normal, albedo, emission, strength, smoothness, hit = out
+    return Hit(t=t, hit=hit, prim_id=prim_id.detach(), point=point,
+               normal=normal, albedo=albedo, emission=emission,
+               emission_strength=strength, smoothness=smoothness)
+
+
 def fused_intersect(scene, o, d, t_min, alive):
-    """Closest hit with in-kernel row extraction, then the same recompute
-    as the oracle path (``hit_attributes_from_rows``)."""
+    """Closest hit with in-kernel row extraction, then the winner
+    recompute: the hit-record kernels where they take the rows
+    (``hit_record.takes``: untextured, on a CUDA device), else the oracle
+    path's ``hit_attributes_from_rows``."""
     rows, prim_id, miss = _winner_rows(scene, o, d, t_min, alive)
+    if takes(rows):
+        return _kernel_hit_attributes(scene, rows, o, d, prim_id, miss)
     return hit_attributes_from_rows(scene, rows, o, d, prim_id, miss, t_min)
 
 
