@@ -29,6 +29,33 @@ compared with the reference, by name) and ``control()`` (the same
 numbers with the reference in a lower precision, or with a fault
 planted, in the program's place: readings by name, for
 ``rtbench/control.py``).
+
+A cell whose ``chips`` is N > 1 runs as N ranks, one per card
+(``rtbench/ranks.py``): ``run.py`` starts N processes of itself with the
+environment ``torchrun`` sets (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``). Each rank checks
+that N cards are visible, as a run on one card does, and runs
+``run_cell`` on card ``cuda:<LOCAL_RANK>``, in lock-step with the others
+over a channel of the harness's own; rank 0 prints the line. For the
+driver of such a cell:
+
+  * its ``Cell`` gets ``device`` = this rank's own card, which is also
+    the current CUDA device;
+  * it reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` from the
+    environment where it needs them;
+  * only the drivers call the program's entry of its process group (such
+    as ``parallel.distributed.initialize()``): the harness makes no group
+    and puts no collective on the program's streams;
+  * every rank runs the same phases and the same number of ``step()``
+    calls in each. The window ends on rank 0's clock once every rank has
+    finished its units, so ``window_s``, and every rate taken over it,
+    holds all ranks' work, whether a collective couples them in each
+    unit or not;
+  * ``release()`` and ``check()`` run on every rank, so they may gather
+    over the program's group; rank 0's numbers are judged. Once rank 0
+    has ended, the others have ``ranks.EXIT_WAIT_S`` (60 s) to end, and
+    rank 0 waits for each rank's report at most ``ranks.WAIT_S``: a
+    driver may give rank 0 alone a long ``check()``.
 """
 
 from __future__ import annotations
@@ -159,16 +186,21 @@ def synchronize(device):
         torch.cuda.synchronize(device)
 
 
-def run_window(cell, seconds: float, device):
+def run_window(cell, seconds: float, device, agree=bool, close=None):
     """The closed loop for ``seconds``, ended by a synchronize →
-    (units, window seconds)."""
+    (units, window seconds). ``agree`` turns this process's decision to
+    go on into the run's: on more than one rank, rank 0's. ``close``, on
+    more than one rank, waits after the synchronize until every rank has
+    finished its units, so that the window holds all ranks' work."""
     synchronize(device)
     t0 = time.perf_counter()
     units = 0
-    while time.perf_counter() - t0 < seconds:
+    while agree(time.perf_counter() - t0 < seconds):
         cell.step()
         units += 1
     synchronize(device)
+    if close is not None:
+        close()
     return units, time.perf_counter() - t0
 
 
@@ -223,13 +255,17 @@ def live_lanes(cell, device) -> dict:
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              t_start: float, device=None, overrides=None,
-             marks=None) -> dict:
+             marks=None, team=None) -> dict:
     """One run of one cell → the result line as a dict. ``device``
     (default the first CUDA device, whose presence ``main`` has checked)
     and ``overrides`` (``{"traffic": {...}, "scene": {...}}``: keys of the
     traffic mix and of the scene recipe replaced, for tests at a size a
     CPU can hold) are for the tests only. ``marks`` collects (phase, host
-    seconds) of the set-up from ``t_start`` on."""
+    seconds) of the set-up from ``t_start`` on. ``team``: this rank's
+    channel to the others (``ranks.Team``) on a cell of more than one
+    card, which starts the window and each traced stretch on every rank
+    together and runs the window's units by rank 0's clock; None on one
+    card."""
     import torch
     from .trace import Trace
     _, _, config, traffic, per_layer, end_to_end = find_cell(workload)
@@ -253,10 +289,18 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     cell.setup()
     synchronize(device)
     mark("warm_up")
+    if team is not None:
+        team.barrier("window")
+        mark("ranks_ready")
     setup_s = time.perf_counter() - t_start
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    units, window_s = run_window(cell, seconds, device)
+    if team is None:
+        units, window_s = run_window(cell, seconds, device)
+    else:
+        units, window_s = run_window(
+            cell, seconds, device, team.agree,
+            lambda: team.barrier("window_end"))
     metrics = {}
     breakdown = None
     dev = {"platform": "gpu" if device.type == "cuda" else "cpu",
@@ -274,13 +318,19 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             return {k: v for f in sources for k, v in f().items()}
         n = int(traffic["trace_units"])
         context = dict(cell.layer_context(units))
+        if team is not None:
+            team.barrier("trace")
         stretch = traced_stretch(cell, n, device, False, counters)
         context["live"] = live_lanes(cell, device)
         tr = Trace(*stretch, n, context)
+        if team is not None:
+            tr.ranks = team.gather("trace", tr.ranks[0])
         values = {name: r.read(tr) for name, r in readers.items()}
         dev.update(busy_s=tr.busy_s, window_s=tr.window_s)
         # what the host did in the device's idle gaps: a second stretch,
         # with host ops recorded
+        if team is not None:
+            team.barrier("host_trace")
         host = Trace(*traced_stretch(cell, n, device, True, counters), n,
                      context)
         breakdown = {"device_ops": tr.device_ops(),
@@ -311,16 +361,40 @@ def parse(argv):
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # given by the launcher to each rank of a cell on more than one card:
+    # the port of the harness's channel and the launcher's start on the
+    # monotonic clock
+    ap.add_argument("--store-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--launched-at", type=float, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
-def main(argv, t_start: float) -> int:
+def print_setup(marks):
+    print("setup " + " ".join(f"{k} {v:.3f}" for k, v in marks),
+          file=sys.stderr)
+
+
+def print_checks(result):
+    """Each compared number beside its limit, on standard error."""
+    for name, c in result["checks"].items():
+        print(f"{name} {c['value']!r} limit {c['limit']!r}",
+              file=sys.stderr)
+
+
+def main(argv, t_start: float, device=None) -> int:
+    """The command: one run of one cell, its line printed last on
+    standard output. ``device`` is for the tests only, as in
+    ``run_cell``."""
     args = parse(argv)
     cell = find_cell(args.workload)[0]
+    chips = int(cell["chips"])
+    if chips > 1 and args.store_port is None:
+        from . import ranks
+        return ranks.launch(argv, chips, t_start)
     import torch
     marks = [("import_torch", time.perf_counter() - t_start)]
     try:
-        require_cards(int(cell["chips"]))
+        require_cards(chips)
     except NoCard as e:
         print(f"rtbench: {e}; no result", file=sys.stderr)
         return 2
@@ -328,18 +402,18 @@ def main(argv, t_start: float) -> int:
                   - marks[0][1]))
     # the loop's host work is one thread's; no pool of CPU threads beside it
     torch.set_num_threads(1)
+    if chips > 1:
+        from . import ranks
+        return ranks.run_rank(args, t_start, marks, device)
     result = run_cell(args.workload, args.seed, args.seconds,
-                      bool(args.trace), t_start, marks=marks)
+                      bool(args.trace), t_start, device=device, marks=marks)
     found = forbidden_modules()
     if found:
         print(f"rtbench: the process loaded {found}; no result",
               file=sys.stderr)
         return 3
     result["device"]["power"] = power_limit()
-    print("setup " + " ".join(f"{k} {v:.3f}" for k, v in marks),
-          file=sys.stderr)
-    for name, c in result["checks"].items():
-        print(f"{name} {c['value']!r} limit {c['limit']!r}",
-              file=sys.stderr)
+    print_setup(marks)
+    print_checks(result)
     print(json.dumps(result), flush=True)
     return 0

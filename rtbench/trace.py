@@ -35,7 +35,10 @@ class Trace:
     """One traced stretch of ``units`` loop units. ``context``: the
     cell's ``layer_context`` (frames and steps per unit, lanes per
     launch, the scene's sizes, host enqueue times of the window). Host
-    ops are there only where the stretch recorded them."""
+    ops are there only where the stretch recorded them. ``ranks``: each
+    rank's busy and window seconds of the same stretch, in rank order
+    (this stretch's alone on one card), from which a reader can take the
+    imbalance of the ranks' shards."""
 
     def __init__(self, prof, window_s: float, counts: dict, units: int,
                  context: dict):
@@ -53,6 +56,7 @@ class Trace:
                      and not _HOST_RUNTIME.match(e.name)]
         self.busy = _union((a, b) for _, a, b in self.device)
         self.busy_s = sum(b - a for a, b in self.busy) / 1e6
+        self.ranks = [{"busy_s": self.busy_s, "window_s": self.window_s}]
 
     # -- what readers ask --------------------------------------------------
 
