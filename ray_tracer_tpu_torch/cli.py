@@ -7,6 +7,7 @@ scene.
     python -m ray_tracer_tpu_torch render --scene metal --frames 64 -o out.png
     python -m ray_tracer_tpu_torch render --model teapot.glb -o teapot.png
     python -m ray_tracer_tpu_torch benchmark --scene room --width 800 --height 800
+    torchrun --standalone --nproc_per_node 4 -m ray_tracer_tpu_torch render
 
 Differences from the reference:
 
@@ -16,6 +17,11 @@ Differences from the reference:
   * ``--backend`` takes the port's values (auto|torch|cuda);
   * times wait for the device before the clock is read;
   * ``render --aov`` writes its PNG with the port's codec (no Pillow);
+  * under ``torchrun`` (its environment set) ``render`` joins the
+    process group (NCCL on cards, gloo where ``RTT_PLATFORM=cpu``), each
+    rank renders its share of the pixels on its own card
+    (``parallel.progressive``) and rank 0 writes the same image as one
+    process would;
   * ``--resilient`` keeps one host-side safe point per chunk of frames
     (8 frames of a batch render, 16 of an adaptive one), with no retry (a
     local card has no relay to retry, ROADMAP D4); with ``--checkpoint``
@@ -184,7 +190,60 @@ def _render_batch(r: Renderer, args, basis):
     return img
 
 
+def _write_image(st: StageTimer, path: str, img) -> None:
+    """The rendered image to ``path`` (.npy raw, else PNG), timed as the
+    ``io`` stage."""
+    with st.stage("io"):
+        if path.endswith(".npy"):
+            write_npy(path, img)
+        else:
+            write_png(path, img)
+    st.log()
+    print(f"wrote {path}", file=sys.stderr)
+
+
+# render's flags that a run over several ranks does not take
+_RANKS_REFUSE = ("aov", "resume", "checkpoint", "resilient", "adaptive",
+                 "denoise", "no_accumulate")
+
+
+def _render_ranks(args):
+    """``render`` as one rank of a process group (under ``torchrun``):
+    the scene on this rank's device, the frames over every rank
+    (``parallel.progressive``), and rank 0 alone writing the image, which
+    is the one-process command's."""
+    import torch.distributed as dist
+    from .parallel.progressive import render_progressive_distributed
+    refused = [f"--{k.replace('_', '-')}" for k in _RANKS_REFUSE
+               if getattr(args, k)]
+    if refused:
+        raise ValueError(f"{', '.join(refused)}: not taken by a render "
+                         f"over several ranks")
+    st = StageTimer()
+    with st.stage("build"):
+        scene, cam, params = _build(args)
+        basis = camera_basis(cam.replace(aspect=params.aspect))
+    with st.stage("render"), torch.no_grad():
+        img = render_progressive_distributed(scene, basis, params,
+                                             args.frames)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dist.destroy_process_group()
+    if rank:
+        return
+    dt = st.totals["render"]
+    print(f"rendered {args.frames} frame(s) at {params.width}x"
+          f"{params.height} on {world} ranks in {dt:.2f}s "
+          f"({args.frames / dt:.2f} fps)", file=sys.stderr)
+    _write_image(st, args.output, img)
+
+
 def cmd_render(args):
+    if "WORLD_SIZE" in os.environ:
+        # started by torchrun: join its process group where its whole
+        # environment is there
+        from .parallel import distributed
+        if distributed.initialize(device=platform_device()):
+            return _render_ranks(args)
     st = StageTimer()
     if args.aov:
         from .renderer import render_aov
@@ -238,13 +297,7 @@ def cmd_render(args):
     n_frames = r.frames + 1 if params.accumulate else args.frames
     print(f"rendered {n_frames} frame(s) at {params.width}x{params.height} "
           f"in {dt:.2f}s ({n_frames / dt:.2f} fps)", file=sys.stderr)
-    with st.stage("io"):
-        if args.output.endswith(".npy"):
-            write_npy(args.output, img)
-        else:
-            write_png(args.output, img)
-    st.log()
-    print(f"wrote {args.output}", file=sys.stderr)
+    _write_image(st, args.output, img)
 
 
 def _timed(fn, device) -> float:

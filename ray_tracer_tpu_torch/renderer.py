@@ -212,10 +212,7 @@ def trace(scene: Scene, o, d, state, params: RenderParams):
     """
     backend = resolved_backend(params, scene)
     compaction = compaction_mode(params, backend)
-    if params.coherent_scatter:
-        share = params.coherent_tile or materials.DEFAULT_SHARE_TILE
-    else:
-        share = 0
+    share = _share_tile(params)
     table = build_light_table(scene) if params.nee else None
     aabb = _scene_aabb(scene) if compaction == "morton" else None
 
@@ -375,6 +372,38 @@ def _blocked_ids(W: int, H: int, device: torch.device):
             torch.from_numpy(inverse).to(device))
 
 
+def _share_tile(params: RenderParams) -> int:
+    """Lanes of a coherent-scatter share tile; 0 with coherent scatter
+    off."""
+    if not params.coherent_scatter:
+        return 0
+    return params.coherent_tile or materials.DEFAULT_SHARE_TILE
+
+
+def frame_lanes(scene: Scene, params: RenderParams):
+    """How ``render_frame`` lays out a frame's lanes → (pixel ids in the
+    order it traces them, the inverse permutation or None where that is
+    raster order, the share tile its ``trace`` calls draw with: 0 where
+    they share no draws).
+
+    The order is the blocked one whenever the kernel runs or coherent
+    scatter is on (the same rule as the reference, so both packages put
+    the same pixels in the same share tiles). A call shares draws only
+    where its lanes, the frame's or a chunk's with ``chunk_pixels``, are
+    whole tiles (``materials.scatter``)."""
+    W, H = params.width, params.height
+    n = W * H
+    if resolved_backend(params, scene) == "cuda" or params.coherent_scatter:
+        pixel_ids, inverse = _blocked_ids(W, H, scene.device)
+    else:
+        pixel_ids = torch.arange(n, dtype=torch.int64, device=scene.device)
+        inverse = None
+    chunk = params.chunk_pixels
+    lanes = chunk if chunk and chunk < n else n
+    tile = _share_tile(params)
+    return pixel_ids, inverse, tile if tile and lanes % tile == 0 else 0
+
+
 AOVS = ("depth", "normal", "albedo", "hit")
 
 
@@ -393,22 +422,14 @@ def render_frame(scene: Scene, basis: CameraBasis, params: RenderParams,
                  frame_index: int):
     """One full frame → (H, W, 3) linear radiance, row 0 = bottom.
 
-    Pixels go out in the blocked order whenever the kernel runs or
-    coherent scatter is on (the same rule as the reference, so both
-    packages put the same pixels in the same share tiles). With
+    Pixels go out in ``frame_lanes``' order. With
     ``params.chunk_pixels > 0`` the frame is traced in sequential pixel
     chunks."""
     with span("render.frame", request=frame_index):
-        device = scene.device
-        basis = basis.to(device)
+        basis = basis.to(scene.device)
         W, H = params.width, params.height
         n = H * W
-        blocked = (resolved_backend(params, scene) == "cuda"
-                   or params.coherent_scatter)
-        if blocked:
-            pixel_ids, inverse = _blocked_ids(W, H, device)
-        else:
-            pixel_ids = torch.arange(n, dtype=torch.int64, device=device)
+        pixel_ids, inverse, _ = frame_lanes(scene, params)
         chunk = params.chunk_pixels
         if chunk and chunk < n:
             if n % chunk:
@@ -420,7 +441,7 @@ def render_frame(scene: Scene, basis: CameraBasis, params: RenderParams,
                 for ids in pixel_ids.split(chunk)])[:n]
         else:
             img = render_pixels(scene, basis, params, frame_index, pixel_ids)
-        if blocked:
+        if inverse is not None:
             img = _unblock(img, inverse, W, H)   # back to raster order
         return img.reshape(H, W, 3)
 

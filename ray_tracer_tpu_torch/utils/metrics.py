@@ -122,6 +122,10 @@ SPANS: Dict[str, bool] = {
     "viewer.frame": False,       # viewer.ViewerCore.frame
     "image.to_host": False,      # io.image: the copy to the host
     "image.encode": False,       # io.image: flip, sRGB curve, uint8
+    "parallel.render": False,    # parallel.progressive: a call on a mesh
+    "parallel.shard": True,      # its frames of this rank's run
+    "parallel.gather": True,     # its all-gather, unpadding and unblocking
+    "parallel.all_gather": True,  # the collective alone
 }
 SPAN_RING = 1 << 15              # closed spans kept by span_records()
 
