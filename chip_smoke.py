@@ -24,7 +24,7 @@ to none.
 Phases, each printing one line (phase 1 one per kernel):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. builds the four kernel libraries from the repository's sources, one
+  1. builds the kernel libraries from the repository's sources, one
      nvcc each, started together, and prints ptxas's registers (by
      template arguments <want_attrs, textured>), stack frames and spills;
      the traversal kernels (closest hit, streaming closest hit, any hit)
@@ -136,6 +136,14 @@ Phases, each printing one line (phase 1 one per kernel):
      version, with
      its bound from the lanes' own ids (26 row columns read on a triangle
      lane, 12 on the others);
+  2g. the viewer's sRGB encode kernel (``ops/srgb_encode.py``) at 800x800
+     and 1920x1080 (values over [-0.25, 1.25], the level thresholds to 2
+     ulp, NaN and inf): ``to_uint8`` of the card image launches it once
+     and returns the numpy encode's bytes, as ``torch.searchsorted`` over
+     the same thresholds does; its device time (launches queued behind a
+     spin of the card) beside its bound of 5 bytes a value, its host time
+     a launch, ``to_uint8`` with its pinned copy, the numpy path after a
+     blocking copy, and the library search's device and host time;
   4. path parity: one 256x144 frame through the kernel and through the
      plain oracle (backend "torch") on the same CUDA tensors; the fraction
      of pixels off by more than 2e-2 must be below 2e-3;
@@ -259,8 +267,9 @@ Phases, each printing one line (phase 1 one per kernel):
      packing a step, finite and the last cycle of views' loss below the
      first's; s/step, peak memory, packings and launches a step printed.
   12. multi-device rendering and training, the command line, the viewer
-     (one packing per frame), the camera pose and the metrics (see the
-     section's functions).
+     (one packing and one sRGB encode launch per frame, each frame's bytes
+     equal to the numpy encode of its accumulation), the camera pose and
+     the metrics (see the section's functions).
   13. the rigid recovery loop (after 12): ``invert_teapot.run_recovery``
      on the reference CPU test's cube (12 triangles padded to 128, 64x64,
      rpp 2, bounces 1, 100 steps from 0.12 x ext x (1, -0.6, 0.4) and
@@ -282,7 +291,8 @@ Phases, each printing one line (phase 1 one per kernel):
 
 Then it prints the seconds each phase took, the kernels' JSON line (the
 four kernels, the scatter-add's row-major form on the texture fetch's
-backward, and the two textured variants, with each kernel's bound: the
+backward, the two textured variants, the hit-record kernels and the sRGB
+encode (its launches: phase 12's viewer frames), with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its operations, counted on this
 run's inputs, over 67 TFLOP/s f32; and the rays its plain version was
 timed on) and, last, one JSON line
@@ -323,7 +333,7 @@ from ray_tracer_tpu_torch import cli, lights, renderer, sampling, viewer
 from ray_tracer_tpu_torch.grad import DEFAULT_TRAINABLE, make_train_step
 from ray_tracer_tpu_torch.grad import edges, topology
 from ray_tracer_tpu_torch.io import loaders
-from ray_tracer_tpu_torch.io.image import to_uint8
+from ray_tracer_tpu_torch.io.image import srgb_thresholds, to_uint8
 from ray_tracer_tpu_torch.io.png import decode_png, encode_png
 from ray_tracer_tpu_torch.ops import anyhit as ah
 from ray_tracer_tpu_torch.ops import blocked_hit as bh
@@ -331,6 +341,7 @@ from ray_tracer_tpu_torch.ops import closest_hit as ch
 from ray_tracer_tpu_torch.ops import hit_record as hr
 from ray_tracer_tpu_torch.ops import intersect
 from ray_tracer_tpu_torch.ops import scatter_rows as sc
+from ray_tracer_tpu_torch.ops.srgb_encode import srgb_encode
 from ray_tracer_tpu_torch.parallel import (distributed, make_mesh,
                                            render_frame_distributed)
 from ray_tracer_tpu_torch.renderer import (_blocked_ids, render_frame,
@@ -403,6 +414,10 @@ KERNELS = {
                    "ray_tracer_tpu/ops/intersect.py:224"),
     "hit_record_vjp": ("ray_tracer_tpu_torch/csrc/hit_record.cu",
                        "ray_tracer_tpu/ops/intersect.py:224"),
+    # the viewer's linear -> 8-bit sRGB encode: no TPU kernel (the JAX
+    # package's to_uint8 is numpy on the host)
+    "srgb_encode": ("ray_tracer_tpu_torch/csrc/srgb_encode.cu",
+                    "ray_tracer_tpu/io/image.py:21"),
 }
 TEXTURED = ("closest_hit_tex", "blocked_hit_tex")
 # launch count name -> (wrapper, its attribute that counts the launches):
@@ -410,7 +425,8 @@ TEXTURED = ("closest_hit_tex", "blocked_hit_tex")
 # without rows (a part of "blocked_hit"), "scatter_rows_rows" for the
 # scatter-add's row-major form (B5), the backward of the texture fetch, and
 # the hit-record kernels: one forward launch a closest-hit launch with
-# untextured rows, one VJP launch a backward through it
+# untextured rows, one VJP launch a backward through it; the sRGB encode's,
+# one a viewer frame on the card
 COUNTS = {"closest_hit": (ch.nearest_hit_attrs, "launches"),
           "closest_hit_tex": (ch.nearest_hit_attrs, "tex_launches"),
           "scatter_rows": (sc.scatter_rows_soa, "launches"),
@@ -420,7 +436,8 @@ COUNTS = {"closest_hit": (ch.nearest_hit_attrs, "launches"),
           "blocked_hit_tex": (bh.nearest_hit_blocked, "tex_launches"),
           "blocked_hit_ids": (bh.nearest_hit_blocked, "ids_launches"),
           "hit_record": (hr.hit_record, "launches"),
-          "hit_record_vjp": (hr.hit_record_vjp, "launches")}
+          "hit_record_vjp": (hr.hit_record_vjp, "launches"),
+          "srgb_encode": (srgb_encode, "launches")}
 LARGE_N = 310          # terrain190k: 2 (310 - 1)^2 = 190,962 triangles
 LARGE_TRAIN_STEPS = 3  # phase 8's timed training steps
 HUGE_N = 520           # 538,722 triangles: 66 blocks of 8192, two rounds
@@ -2408,6 +2425,126 @@ def phase2f_recompute_vs_plain(device, terrain):
     return fwd, vjp
 
 
+# the sRGB encode's images in phase 2g: the viewer cell's and the main
+# path's; the card's spin (cycles) that the timed launches queue behind
+SRGB_SHAPES = ((800, 800, 3), (H, W, 3))
+SPIN_CYCLES = 100_000_000
+
+
+def device_ms(fn, reps):
+    """Mean milliseconds per call of fn() on the card alone: the calls are
+    queued behind a spin of the card (SPIN_CYCLES, ~50 ms), so the events
+    time the device's work and not the host's issue of it (which must end
+    inside the spin: raises otherwise)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    spin = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spin.record()
+    torch.cuda.synchronize()
+    spin_ms = stop.elapsed_time(spin)
+    if issue_ms > 0.5 * spin_ms:
+        raise AssertionError(f"device_ms: {reps} calls took {issue_ms:.2f} "
+                             f"ms to issue, past half the {spin_ms:.2f} ms "
+                             f"spin")
+    return start.elapsed_time(stop) / reps
+
+
+def host_ms(fn, reps):
+    """Mean wall milliseconds per call of fn(), to the card's end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def srgb_image(shape, seed):
+    """A linear float32 image for the encode: half the values uniform over
+    [-0.25, 1.25], half the thresholds and their neighbours to 2 ulp, and
+    64 of NaN, +inf, -inf and -0.0."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    t = srgb_thresholds().view(np.int32)
+    near = (rng.choice(t, n) + rng.integers(-2, 3, n)).astype(np.int32)
+    x = np.where(rng.random(n) < 0.5, rng.uniform(-0.25, 1.25, n),
+                 near.view(np.float32)).astype(np.float32)
+    x[rng.choice(n, 64, replace=False)] = np.float32(
+        [np.nan, np.inf, -np.inf, -0.0] * 16)
+    return x.reshape(shape)
+
+
+def searchsorted_encode(x, table):
+    """The same encode from torch's own search over the same thresholds
+    (the library alternative to the kernel): flip, the number of
+    thresholds at or below each value, NaN to 0, uint8."""
+    x = x.flip(0)
+    return torch.searchsorted(table, x, right=True).masked_fill_(
+        torch.isnan(x), 0).to(torch.uint8)
+
+
+def phase2g_srgb_vs_numpy(device):
+    """The sRGB encode kernel (``ops/srgb_encode.py``) against the numpy
+    encode on SRGB_SHAPES (``srgb_image``): ``to_uint8`` of the card
+    image launches it once and returns the numpy encode's bytes, as
+    ``torch.searchsorted`` over the same table does; each timed: the
+    kernel's device ms (``device_ms``) beside its 5-byte-a-value bound and
+    its host ms a launch, ``to_uint8`` with its pinned copy and wait, the
+    library search's device and host ms, and the path before the kernel (a
+    blocking copy of the float image, then numpy) → the main path's
+    timing entry."""
+    table = torch.from_numpy(srgb_thresholds().copy()).to(device)
+    texts, entry = [], None
+    for k, shape in enumerate(SRGB_SHAPES):
+        img = srgb_image(shape, 31 + k)
+        x = torch.from_numpy(img).to(device)
+        want = to_uint8(torch.from_numpy(img))   # the numpy encode
+        before = srgb_encode.launches
+        got = to_uint8(x)
+        if srgb_encode.launches != before + 1:
+            raise AssertionError(f"sRGB encode {shape}: "
+                                 f"{srgb_encode.launches - before} launches "
+                                 f"in to_uint8, want 1")
+        lib = searchsorted_encode(x, table).cpu().numpy()
+        off = {"kernel": int((got != want).sum()),
+               "library": int((lib != want).sum())}
+        if any(off.values()):
+            raise AssertionError(f"sRGB encode {shape}: values off the numpy "
+                                 f"encode {off}")
+        ms = device_ms(lambda: srgb_encode(x, True), 50)
+        issue = host_ms(lambda: srgb_encode(x, True), 50)
+        lib_ms = device_ms(lambda: searchsorted_encode(x, table), 50)
+        lib_issue = host_ms(lambda: searchsorted_encode(x, table), 50)
+        call = host_ms(lambda: to_uint8(x), 20)
+        plain = host_ms(lambda: to_uint8(x.cpu()), 5)
+        b = bound(5 * img.size, 0)
+        texts.append(
+            f"{shape[1]}x{shape[0]}x{shape[2]}: equal to the numpy encode "
+            f"(kernel and library), {ms * 1e3:.2f} us on the card (bound "
+            f"{b['bound_ms'] * 1e3:.2f} us by {b['bytes']} B: "
+            f"{b['bound_ms'] / ms:.1%}), {issue:.4f} ms a launch on the "
+            f"host; to_uint8 with its pinned copy {call:.3f} ms, the numpy "
+            f"path after a blocking copy {plain:.2f} ms; torch.searchsorted "
+            f"{lib_ms * 1e3:.2f} us on the card, {lib_issue:.4f} ms on the "
+            f"host")
+        entry = dict(ms=ms, plain_ms=plain, plain_rays=shape[0] * shape[1],
+                     max_abs_err=0.0, mismatches=0, library_ms=lib_ms, **b)
+    print(f"phase 2g sRGB encode vs numpy: {'; '.join(texts)}", flush=True)
+    return entry
+
+
 def phase9_textured(device, terrain_tex, terrain_nee_tex, large_tex,
                     untextured_rate, card, profile, out_dir):
     """The textured paths: the forward render of terrain_tex through the
@@ -3936,17 +4073,27 @@ def viewer_path(device, card):
     """The viewer's core (no figure) on the card at the main path's size:
     VIEWER_FRAMES frames between VIEWER_KEYS (moves, scene switches 0-3,
     bounce and rays-per-pixel keys) and a resize, the packings of each
-    frame counted (one each: the planes live one frame); the figure on Agg
-    where matplotlib is → text."""
+    frame counted (one each: the planes live one frame), one sRGB encode
+    launch a frame and each frame's bytes equal to the numpy encode of its
+    accumulation; the figure on Agg where matplotlib is → (text, the
+    encode launches)."""
     scene, cam = rt.builtin_scene("metal", aspect=W / H, device=device)
     core = viewer.ViewerCore(scene, cam, rt.RenderParams(**PARAMS),
                              scene_id=3)
     packs = []
 
     def frame():
-        before = ch.scene_planes.packs
+        before = ch.scene_planes.packs, srgb_encode.launches
         out = core.frame()
-        packs.append(ch.scene_planes.packs - before)
+        packs.append(ch.scene_planes.packs - before[0])
+        encodes = srgb_encode.launches - before[1]
+        if encodes != 1:
+            raise AssertionError(f"viewer frame: {encodes} sRGB encode "
+                                 f"launches, want 1")
+        if not np.array_equal(out[0], to_uint8(core.renderer.image.cpu())):
+            raise AssertionError(f"viewer frame {len(packs)} "
+                                 f"({out[0].shape}): bytes off the numpy "
+                                 f"encode of its accumulation")
         return out
 
     for key in VIEWER_KEYS:
@@ -3974,8 +4121,9 @@ def viewer_path(device, card):
     return (f"{frames} frames ({W}x{H}, then {VIEWER_RESIZE[0]}x"
             f"{VIEWER_RESIZE[1]}) after keys {''.join(VIEWER_KEYS)}: "
             f"{core.clock.mean_ms:.1f} ms/frame ({core.clock.fps:.2f} fps, "
-            f"n={core.clock.count}); packings per frame {packs}; "
-            f"{figure} | {card}")
+            f"n={core.clock.count}); packings per frame {packs}; one sRGB "
+            f"encode a frame, each equal to the numpy encode; {figure} | "
+            f"{card}"), frames
 
 
 def pose_grads(scene, cam, params, origin, target):
@@ -4096,7 +4244,8 @@ def metrics_path(terrain, card):
 
 def phase12_parallel_and_shell(device, scenes, paths, card):
     """Multi-device rendering and training, the command line, the viewer,
-    the camera pose and the metrics (module docstring)."""
+    the camera pose and the metrics (module docstring) → the viewer's sRGB
+    encode launches."""
     print("phase 12 one rank: " + one_rank_path(device, scenes, card),
           flush=True)
     torch.cuda.empty_cache()
@@ -4104,11 +4253,13 @@ def phase12_parallel_and_shell(device, scenes, paths, card):
                                                  card), flush=True)
     torch.cuda.empty_cache()
     print("phase 12 command line: " + cli_path(paths, card), flush=True)
-    print("phase 12 viewer: " + viewer_path(device, card), flush=True)
+    text, encodes = viewer_path(device, card)
+    print("phase 12 viewer: " + text, flush=True)
     print("phase 12 camera pose: " + pose_path(device, card), flush=True)
     print("phase 12 metrics: " + metrics_path(scenes["terrain"], card),
           flush=True)
     dist.destroy_process_group()
+    return encodes
 
 
 # ---------------------------------------------------------------------------
@@ -4353,6 +4504,7 @@ def main(argv):
                           timing["closest_hit"], timing["blocked_hit"]))
         timing["hit_record"], timing["hit_record_vjp"] = run(
             "2f", phase2f_recompute_vs_plain, device, terrain)
+    timing["srgb_encode"] = run("2g", phase2g_srgb_vs_numpy, device)
     torch.cuda.empty_cache()
     counts = {}
     main_counts, terrain_rate = run(
@@ -4388,7 +4540,8 @@ def main(argv):
     torch.cuda.empty_cache()
     paths = run("11", phase11_recovery, device, terrain, card, phase5_s)
     torch.cuda.empty_cache()
-    run("12", phase12_parallel_and_shell, device,
+    counts["srgb_encode"] = run(
+        "12", phase12_parallel_and_shell, device,
         {"terrain": terrain, "terrain190k": large,
          "terrain_nee": terrain_nee}, paths, card)
     del large, terrain_nee

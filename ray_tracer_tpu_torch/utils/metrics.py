@@ -120,8 +120,10 @@ SPANS: Dict[str, bool] = {
     "train.backward": True,      # autograd's gradient and the edge term
     "train.optimizer": True,     # the gradients handed over, the step
     "viewer.frame": False,       # viewer.ViewerCore.frame
-    "image.to_host": False,      # io.image: the copy to the host
-    "image.encode": False,       # io.image: flip, sRGB curve, uint8
+    "image.to_host": False,      # io.image: the copy to the host; on a
+                                 # card the 8-bit copy and its wait
+    "image.encode": False,       # io.image: flip, sRGB curve, uint8; on a
+                                 # card the kernel's launch
     "parallel.render": False,    # parallel.progressive: a call on a mesh
     "parallel.shard": True,      # its frames of this rank's run
     "parallel.gather": True,     # its all-gather, unpadding and unblocking
