@@ -51,12 +51,11 @@ Phases, each printing one line (phase 1 one per kernel):
      coherent scatter with the 512-ray share tile, 8 frames, backend
      "auto" (which resolves to the kernel); the closest-hit kernel's launch
      count must rise by exactly frames x (bounces + 1), the image must be
-     finite and not constant; segments/s timed with CUDA events after a
-     warm-up frame (median and best of 5 renders); no other kernel but
-     the hit-record kernel, once a segment, may launch on this forward path (the scene is below the streaming
-     kernel's crossover), and the render must pack the scene's planes
-     exactly once (they live one top-level call; so in phases 7, 8 and
-     9);
+     finite and not constant; no other kernel but the hit-record kernel,
+     once a segment, may launch on this forward path (the scene is below
+     the streaming kernel's crossover), and the render must pack the
+     scene's planes exactly once (they live one top-level call; so in
+     phases 7, 8 and 9);
   2b. (run before 3) the scatter-add kernel vs the exact sum (its plain
      version, ``index_add_``, in float64) on the card, on the 1080p
      terrain primary wavefront's winner ids in the blocked pixel order
@@ -153,15 +152,11 @@ Phases, each printing one line (phase 1 one per kernel):
      ``DEFAULT_TRAINABLE`` (Adam, 1e-2 on the albedos and 1e-4 on the
      geometry: ``train_optimizer``) at the main path's settings (terrain
      1920x1080, bounces=3), from the scene with its albedos scaled by 0.8
-     towards the same frame of the true scene; one warm-up step and 5
-     timed steps. Each step
-     must launch the closest-hit and the scatter-add kernel bounces + 1
-     times each and pack the scene's planes exactly once (the optimizer
-     moved the scene; so in phase 8), every gradient must be finite,
-     tri_v0's and tri_albedo's
-     not all zero, and the last loss below the first. Prints s/step
-     (median and spread, CUDA events), forward+backward segments/s, peak
-     device memory, and the host's enqueue time against the device time;
+     towards the same frame of the true scene; six steps. Each step must
+     launch the closest-hit and the scatter-add kernel bounces + 1 times
+     each and pack the scene's planes exactly once (the optimizer moved
+     the scene; so in phase 8), every gradient must be finite, tri_v0's
+     and tri_albedo's not all zero, and the last loss below the first;
   6. gradient parity: a whole-frame MSE gradient over every float scene
      leaf of a 256x144 terrain frame through the kernels (backend "cuda")
      and through the plain oracle (backend "torch") on the same CUDA
@@ -173,24 +168,23 @@ Phases, each printing one line (phase 1 one per kernel):
      settings with ``nee=True, mis=True``; closest-hit launches must rise
      by frames x (bounces + 1), any-hit launches by frames x bounces (no
      shadow rays at the last segment), scatter-add by 0; the image finite
-     and not constant; segments/s as in phase 3, and, ungated, the image
-     mean against a ``nee=False`` render of the same frames; then the
-     same for the room scene at 1080p without the sky;
-  8. the large-scene path on terrain190k (built on the host; its build
-     time printed), past the crossover: the forward render at phase 3's
-     settings (streaming-kernel launches +32, closest-hit +0), the NEE
-     render on terrain190k_nee (streaming +32 with rows and +24 without,
-     any-hit +0), one warm-up and 3 timed training steps (streaming and
-     scatter-add launches 4 each per step, gradients finite, the last loss
-     below the first, peak memory), image parity at 256x144 against the
-     plain oracle (backend "torch"; fraction off below 2e-3) and gradient
-     parity at 128x72 (per leaf max |diff| <= 1e-4 x max |g|);
+     and not constant; then the same for the room scene at 1080p without
+     the sky;
+  8. the large-scene path on terrain190k (built on the host), past the
+     crossover: the forward render at phase 3's settings (streaming-kernel
+     launches +32, closest-hit +0), the NEE render on terrain190k_nee
+     (streaming +32 with rows and +24 without, any-hit +0), four training
+     steps (streaming and scatter-add launches 4 each per step, gradients
+     finite, the last loss below the first), image parity at 256x144
+     against the plain oracle (backend "torch"; fraction off below 2e-3)
+     and gradient parity at 128x72 (per leaf max |diff| <= 1e-4 x max
+     |g|);
   9. the textured paths: ``render_progressive`` of terrain_tex at phase
      3's settings (32 launches of the closest-hit kernel's textured
      variant, no other kernel) and of terrain190k_tex (32 of the streaming
-     kernel's), each rate beside phase 3's; the NEE render of terrain_tex
-     with terrain_nee's emitters (32 textured closest-hit, 24 any-hit);
-     256x144 image parity; one warm-up and 3 timed texture-recovery steps
+     kernel's); the NEE render of terrain_tex with terrain_nee's emitters
+     (32 textured closest-hit, 24 any-hit); 256x144 image parity; four
+     texture-recovery steps
      (Adam 1e-2 over the albedos and the texture stack, from both scaled
      by 0.8: 4 textured closest-hit, 4 scatter-add and 7 row-major
      scatter-add launches a step, one packing, the loss falls, the
@@ -200,7 +194,7 @@ Phases, each printing one line (phase 1 one per kernel):
      every AOV (``render_aov``) at 1920x1080 on terrain, terrain190k and
      terrain_tex, each call launching its closest-hit kernel (the
      streaming one on terrain190k, the textured variant on terrain_tex)
-     once and no other kernel, each timed; the AOVs through the kernels
+     once and no other kernel; the AOVs through the kernels
      against the plain path on the same tensors at 256x144 and at
      250x142 (not a whole number of 16x8 blocks): coverage equal, depth,
      normal and albedo within rtol 3e-4 / atol 1e-5 on hit pixels; the
@@ -210,10 +204,10 @@ Phases, each printing one line (phase 1 one per kernel):
      target 0 over 16 frames in chunks of 8 (16 x (bounces + 1)
      closest-hit launches, the mean within rtol 1e-4 / atol 1e-6 of
      ``render_progressive`` of the same frames) and, ungated, at target
-     0.05 (frames used and seconds); the 8-frame ``qmc=True`` render as in
-     phase 3 (rate beside phase 3's); ``denoise_render`` on a 1-frame
-     render without coherent scatter (finite, mean within 5%, the mean
-     |difference between rows| below 0.6 of the input's; ms); wavefront
+     0.05 (frames used); the 8-frame ``qmc=True`` render as in phase 3;
+     ``denoise_render`` on a 1-frame render without coherent scatter
+     (finite, mean within 5%, the mean |difference between rows| below 0.6
+     of the input's); wavefront
      compaction ("octant" and "morton"): with coherent scatter off each
      compacted frame bit-equal to the uncompacted one on terrain,
      terrain190k and terrain_nee (NEE + MIS); the closest-hit kernel on
@@ -222,37 +216,30 @@ Phases, each printing one line (phase 1 one per kernel):
      wavefronts, each timed unsorted and in each compaction's order on
      the same rays (the same results required), with the sort's ms (and
      on int64 keys), with the gathers of a segment's tensors, and the
-     live share; the 8-frame
-     render's rate off, octant and morton in turns, with each coherent
-     frame's mean and fraction of pixels off against the uncompacted
-     frame (ungated); the 256x144 training gradient with each compaction
-     against without (coherent scatter off, the phase 6 gate) and s/step
-     of the 1080p training step off, octant and morton; and one 1080p
-     training gradient with ``remat=True`` against without: the forward
-     image bit-equal, every gradient within rtol 1e-3 / atol 1e-7, then
-     s/step, peak memory and the closest-hit and scatter-add launches of
-     a ``make_train_step`` step of each.
+     live share; the 256x144 training gradient with each compaction
+     against without (coherent scatter off, the phase 6 gate); and one
+     1080p training gradient with ``remat=True`` against without: the
+     forward image bit-equal, every gradient within rtol 1e-3 / atol
+     1e-7, then the hit-record and hit-record VJP launches of a
+     ``make_train_step`` step of each.
   11. mesh recovery and model loading (after 10), model files written by
      the script into build/chip_smoke_models/: the terrain190k heightfield
      as an OBJ, a closed torus of the teapot's scale (R 1, r 0.4, 112 x 70
      quads: 7,840 vertices, 15,680 triangles) as an OBJ with an MTL whose
      map_Kd is a PNG (written by the port's codec) and as a GLB with the
      PNG embedded. Loading: the OBJs through the native parser (which
-     must build here) and the Python one, equal, seconds of each; the
-     loaded OBJ (190,962 triangles) and the textured GLB rendered at
-     phase 3's settings (32 streaming launches, 32 textured closest-hit
-     launches, no other kernel) and held to the plain path at 256x144 (the
-     phase 4 gate). Edge gradients: ``gradients_from_draws`` through the
+     must build here) and the Python one, equal; the loaded OBJ (190,962
+     triangles) and the textured GLB rendered at phase 3's settings (32
+     streaming launches, 32 textured closest-hit launches, no other
+     kernel) and held to the plain path at 256x144 (the phase 4 gate). Edge gradients: ``gradients_from_draws`` through the
      kernels against the plain path on the same draws (the per-leaf
      phase 6 gate) on the torus at 128x128 (a 10%-perturbed torus against
      the truth, its MSE cotangent, 4,096 edge samples, topology on) and on
      terrain at 1080p (albedos x 0.8, 4,096 edge and 4,096 sphere samples),
-     2 side traces x (bounces + 1) closest-hit launches a sample family,
-     the draws', the traces' and the rest's ms; build_topology's seconds
-     on the torus and on terrain190k; 3 timed 1080p terrain training
-     steps with ``edge_samples=4096`` and the topology (24 closest-hit and
-     4 scatter-add launches and one packing a step, gradients finite),
-     s/step beside phase 5's. Recovery: ``run_vertex_recovery`` at the
+     2 side traces x (bounces + 1) closest-hit launches a sample family;
+     four 1080p terrain training steps with ``edge_samples=4096`` and the
+     topology (24 closest-hit and 4 scatter-add launches and one packing a
+     step, gradients finite). Recovery: ``run_vertex_recovery`` at the
      reference CPU test's configuration (the octasphere at subdivision 2,
      64x64, 4 views, 300 steps, 1,024 edge samples, lambda 2, frame
      cycle 2, start RMS 10% of the extent), held to that test's bars
@@ -265,7 +252,7 @@ Phases, each printing one line (phase 1 one per kernel):
      loop makes (per step 2 + 1 + 4 closest-hit and 2 + 2 scatter-add
      launches; the targets and coverage masks before the loop) and one
      packing a step, finite and the last cycle of views' loss below the
-     first's; s/step, peak memory, packings and launches a step printed.
+     first's; packings and launches a step printed.
   12. multi-device rendering and training, the command line, the viewer
      (one packing and one sRGB encode launch per frame, each frame's bytes
      equal to the numpy encode of its accumulation), the camera pose and
@@ -282,7 +269,7 @@ Phases, each printing one line (phase 1 one per kernel):
      runs' errors; both with the launches the loop makes (one coverage
      AOV before the loop, then per step 8 x rpp x (bounces + 1) + 1
      closest-hit and rpp x (bounces + 1) scatter-add launches: 33 and 4),
-     1 + 8 packings a step, seconds, s/step and peak memory; then C.2
+     1 + 8 packings a step; then C.2
      (``render_progressive(chunk=2, resilient=True)`` and
      ``render_adaptive(resilient=True)`` bit-equal to the default calls on
      terrain at phase 3's settings) and C.1 (a ``.data`` write to
@@ -297,17 +284,11 @@ larger of its bytes over 3.35 TB/s and its operations, counted on this
 run's inputs, over 67 TFLOP/s f32; and the rays its plain version was
 timed on) and, last, one JSON line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
-without that line. ``--profile`` adds measurements: where one main-path
-frame's time goes (torch.profiler), for terrain, for the room scene at
-the same settings and for one NEE frame of terrain_nee, and where one
-training step's time goes. ``--out DIR`` writes 4x-downsampled
-images (``chip_smoke_terrain.npy``, ``chip_smoke_terrain_nee.npy``) and, with
-``--profile``, the profiler tables (``chip_smoke_profile_<name>.txt``)
-into DIR; without it nothing is written. With ``--profile`` phases 8
-and 9 also profile one forward and one NEE frame of the large scene and
-of the textured scenes.
+without that line. The times are the kernels' alone: the end-to-end
+metrics of the paths (frame rates, step times, memory) are the
+benchmark's (``rtbench/``, ``BENCHMARK.json``).
 
-Usage: python3 chip_smoke.py [--profile] [--out DIR]
+Usage: python3 chip_smoke.py
 """
 
 import argparse
@@ -353,14 +334,13 @@ from ray_tracer_tpu_torch.utils import build, native
 from ray_tracer_tpu_torch.utils.metrics import StageTimer
 
 W, H, FRAMES, BOUNCES = 1920, 1080, 8, 3
-TRIALS = 5  # timed 8-frame renders of the main path
 PARAMS = dict(width=W, height=H, bounces=BOUNCES, rays_per_pixel=1,
               skybox=True, coherent_scatter=True, coherent_tile=0,
               backend="auto")
 PROBE_RAYS = 65_536
 MAX_ID_MISMATCHES = 2
 PARITY_TOL, PARITY_GATE = 2e-2, 2e-3
-TRAIN_STEPS = 5        # timed training steps after one warm-up step
+TRAIN_STEPS = 6        # phase 5's training steps: the loss must fall
 ALBEDO_START = 0.8     # the training start scales both albedos by this
 ALBEDO_LR, GEOMETRY_LR = 1e-2, 1e-4   # Adam rates of the training phase
 ALBEDOS = ("sphere_albedo", "tri_albedo")
@@ -439,7 +419,7 @@ COUNTS = {"closest_hit": (ch.nearest_hit_attrs, "launches"),
           "hit_record_vjp": (hr.hit_record_vjp, "launches"),
           "srgb_encode": (srgb_encode, "launches")}
 LARGE_N = 310          # terrain190k: 2 (310 - 1)^2 = 190,962 triangles
-LARGE_TRAIN_STEPS = 3  # phase 8's timed training steps
+LARGE_TRAIN_STEPS = 4  # phase 8's training steps
 HUGE_N = 520           # 538,722 triangles: 66 blocks of 8192, two rounds
 LIBRARIES = list(dict.fromkeys(os.path.splitext(os.path.basename(src))[0]
                                for src, _ in KERNELS.values()))
@@ -458,7 +438,7 @@ REGISTER_SLACK = 3
 TEX_RES = 512          # texture_resolution of the textured terrains
 TEX_REPEATS = 8        # their UVs span [-8, 8]: the repeat wrap
 TEX_START = 0.8        # the texture-recovery start scales the stack by this
-TEX_TRAIN_STEPS = 3    # phase 9's timed training steps
+TEX_TRAIN_STEPS = 4    # phase 9's training steps
 # texture recovery's trainable leaves. On an H100 (1080p, 5 steps from the
 # start above) adding DEFAULT_TRAINABLE's geometry at 1e-4 raised the loss
 # from 3.05e-4 to 5.88e-4 on terrain_tex, where it lowers it on the
@@ -1074,7 +1054,8 @@ def phase2_kernel_vs_plain(device, terrain):
     work = traversal_work(scene, o, d, alive)
     nbytes = W * H * (25 + 4 * (2 + 26)) + plane_bytes(scene)
     b, flat = work_bound(nbytes, work), work_bound(nbytes, work, False)
-    lib, planes = ch._library(), ch.scene_planes(scene)
+    lib = build.library("closest_hit", ch.SIGNATURES)
+    planes = ch.scene_planes(scene)
     shape = (planes.n_clusters, planes.sup.shape[0])
     print(f"phase 2 main-path shape (terrain, {W}x{H} primary rays, "
           f"{hits} hits, {mism} mism): kernel {ms:.3f} ms with the plane "
@@ -1096,43 +1077,15 @@ def phase2_kernel_vs_plain(device, terrain):
                 max_abs_err=max_err, mismatches=mism, library_ms=None, **b)
 
 
-def timed_render(scene, basis, params, frames):
-    """(image, device seconds, host seconds to enqueue) of one
-    render_progressive call, timed with CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    img = render_progressive(scene, basis, params, frames)
-    stop.record()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return img, start.elapsed_time(stop) / 1e3, enqueue_s
-
-
-def rate_text(runs, segs):
-    """Segments/s of timed renders: median, best, the runs and their
-    spread."""
-    med, best = float(np.median(runs)), min(runs)
-    return (f"{segs / med / 1e6:.3f} M segments/s median, "
-            f"{segs / best / 1e6:.3f} best ({len(runs)} runs "
-            f"{[round(r, 4) for r in runs]} s, spread "
-            f"{(max(runs) - best) / best:.2%}")
-
-
 def render_path(label, scene, cam, params, want):
-    """One path's render, checked: a warm-up frame, every launch count to
-    0, ``render_progressive`` of FRAMES frames, the counts held to
-    ``want`` and the scene's planes packed exactly once (they live one
-    call), the image finite (H, W, 3) and not constant; then TRIALS - 1
-    more timed renders → (image, counts, device seconds of each render,
-    host seconds to enqueue the first)."""
-    basis = rt.camera_basis(cam)
-    render_frame(scene, basis, params, 0)            # warm-up frame
-    torch.cuda.synchronize()
+    """One path's render, checked: every launch count to 0,
+    ``render_progressive`` of FRAMES frames, the counts held to ``want``
+    and the scene's planes packed exactly once (they live one call), the
+    image finite (H, W, 3) and not constant → (image, counts)."""
     reset_counts()
     packs = ch.scene_planes.packs
-    img, secs, enqueue_s = timed_render(scene, basis, params, FRAMES)
+    img = render_progressive(scene, rt.camera_basis(cam), params, FRAMES)
+    torch.cuda.synchronize()
     counts = read_counts()
     if counts != want:
         raise AssertionError(f"{label}: kernel launches {counts} != {want}")
@@ -1144,74 +1097,24 @@ def render_path(label, scene, cam, params, want):
         raise AssertionError(f"{label} image is not finite (H, W, 3)")
     if float(img.std()) < 1e-3:
         raise AssertionError(f"{label} image is constant")
-    runs = [secs] + [timed_render(scene, basis, params, FRAMES)[1]
-                     for _ in range(TRIALS - 1)]
-    return img, counts, runs, enqueue_s
+    return img, counts
 
 
-def phase3_main_path(device, terrain, card, profile, out_dir):
+def phase3_main_path(device, terrain, card):
     scene, cam = terrain
     params = rt.RenderParams(**PARAMS)
     if resolved_backend(params, scene) != "cuda":
         raise AssertionError("backend 'auto' did not resolve to cuda")
-    img, counts, runs, enqueue_s = render_path(
+    img, counts = render_path(
         "terrain", scene, cam, params,
         launches(closest_hit=FRAMES * (BOUNCES + 1),
                  hit_record=FRAMES * (BOUNCES + 1)))
-    segs = W * H * 1 * (BOUNCES + 1) * FRAMES
     print(f"phase 3 main path: terrain {scene.num_tris} tris {W}x{H} "
-          f"b{BOUNCES} {FRAMES} frames: {rate_text(runs, segs)}; host "
-          f"enqueue {enqueue_s:.4f} s of the first), {counts['closest_hit']} "
+          f"b{BOUNCES} {FRAMES} frames: {counts['closest_hit']} "
           f"closest-hit, {counts['blocked_hit']} streaming and "
-          f"{counts['hit_record']} hit-record launches, "
+          f"{counts['hit_record']} hit-record launches, one packing, "
           f"image mean {float(img.mean()):.4f} | {card}", flush=True)
-    if out_dir:
-        np.save(os.path.join(out_dir, "chip_smoke_terrain.npy"),
-                img[::4, ::4].cpu().numpy())
-    if profile:
-        basis = rt.camera_basis(cam)
-        profile_frame("terrain", scene, basis, params, out_dir)
-        room, room_cam = rt.builtin_scene("room", aspect=W / H,
-                                          device=device)
-        room_basis = rt.camera_basis(room_cam)
-        render_frame(room, room_basis, params, 0)
-        _, room_s, _ = timed_render(room, room_basis, params, FRAMES)
-        print(f"profile: room {W}x{H} {FRAMES} frames "
-              f"{segs / room_s / 1e6:.3f} M segments/s", flush=True)
-        profile_frame("room", room, room_basis, params, out_dir)
-    return counts, segs / float(np.median(runs))
-
-
-def profile_frame(name, scene, basis, params, out_dir):
-    """Where one main-path frame's time goes (measurement only): the
-    frame's wall time with CUDA events, then the same frame under
-    torch.profiler for the kernels' device times. With ``out_dir``, the
-    profiler's table goes to chip_smoke_profile_<name>.txt there."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    _, frame_s, _ = timed_render(scene, basis, params, 1)
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        render_frame(scene, basis, params, 1)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    if out_dir:
-        table = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=40)
-        with open(os.path.join(out_dir, f"chip_smoke_profile_{name}.txt"),
-                  "w") as f:
-            f.write(table)
-    shares = []
-    for key in ("closest_hit", "blocked_hit", "anyhit"):
-        us = [e.time_range.elapsed_us() for e in kernels if key in e.name]
-        if us:
-            shares.append(f"{key} per bounce {us} us "
-                          f"({sum(us) / max(busy_us, 1):.1%} of device time)")
-    print(f"profile: {name} frame {frame_s * 1e3:.3f} ms wall; "
-          f"{len(kernels)} device kernels busy {busy_us / 1e3:.3f} ms "
-          f"({busy_us / 1e6 / frame_s:.1%} of the wall time); "
-          + "; ".join(shares), flush=True)
+    return counts
 
 
 def image_parity(label, scene, cam):
@@ -1671,7 +1574,8 @@ def phase2c_anyhit_vs_plain(device, terrain, terrain_nee):
     # and box planes once
     nbytes = o.shape[0] * 26 + plane_bytes(scene, attrs=False)
     b, flat = work_bound(nbytes, work), work_bound(nbytes, work, False)
-    lib, planes = ah._library(), ch.scene_planes(scene)
+    lib = build.library("anyhit", ah.SIGNATURES)
+    planes = ch.scene_planes(scene)
     shape = (planes.n_clusters, planes.sup.shape[0])
     print(f"phase 2c main-path shape (terrain_nee {W}x{H} bounce-0 shadow "
           f"rays, {int(alive.sum())} live, {int(got.sum())} blocked, {mism} "
@@ -1715,12 +1619,11 @@ def train_setup(scene, cam, textured=False):
     return step_fn, (trainable, opt, start, basis, target, 0)
 
 
-def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
-               textured=False):
+def train_path(label, scene, cam, card, steps, hit, textured=False):
     """The training path: ``grad.make_train_step`` over DEFAULT_TRAINABLE
     (over TEX_FIELDS with ``textured``) at the main path's settings, from
-    ``train_setup``'s start towards frame 0 of the true scene; one warm-up
-    step and ``steps`` timed steps, each driven with every launch count at
+    ``train_setup``'s start towards frame 0 of the true scene; ``steps``
+    steps, each driven with every launch count at
     0 and held to bounces + 1 launches of the ``hit`` kernel and of the
     scatter-add (with ``textured`` also bounces * 2 + 1 of its row-major
     form: the backward of the albedo fetch of every segment and of the
@@ -1730,7 +1633,7 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
     optimizer moved the scene);
     gradients finite, tri_v0's (textures', with ``textured``) and
     tri_albedo's not all zero, the last loss below the first → (line, the
-    launches summed over all steps, the median s/step)."""
+    launches summed over all steps)."""
     step_fn, (trainable, opt, start, basis, target, _) = train_setup(
         scene, cam, textured)
     seg = BOUNCES + 1
@@ -1739,20 +1642,12 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
                         hit_record=0 if textured else seg,
                         hit_record_vjp=0 if textured else seg)
     totals = dict.fromkeys(per_step, 0)
-    losses, device_s, host_s = [], [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for step in range(1 + steps):                   # step 0 warms up
+    losses = []
+    for step in range(steps):
         reset_counts()
         packs = ch.scene_planes.packs
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        ev0.record()
         trainable, opt, loss = step_fn(trainable, opt, start, basis, target,
                                        0)
-        ev1.record()
-        enqueue = time.perf_counter() - t0
         torch.cuda.synchronize()
         counts = read_counts()
         if counts != per_step:
@@ -1765,10 +1660,6 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
                 f"{ch.scene_planes.packs - packs} times")
         totals = {k: totals[k] + counts[k] for k in totals}
         losses.append(float(loss))
-        if step:
-            device_s.append(ev0.elapsed_time(ev1) / 1e3)
-            host_s.append(enqueue)
-    peak = torch.cuda.max_memory_allocated()
     for k, p in trainable.items():
         if p.grad is None or not bool(torch.isfinite(p.grad).all()):
             raise AssertionError(f"{label}: gradient of {k} is missing or "
@@ -1778,32 +1669,21 @@ def train_path(label, scene, cam, card, steps, hit, profile, out_dir,
             raise AssertionError(f"{label}: gradient of {k} is all zero")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not fall: {losses}")
-    med = float(np.median(device_s))
-    segs = W * H * 1 * (BOUNCES + 1)
     rates = (f"{ALBEDO_LR} albedos and textures" if textured
              else f"{ALBEDO_LR} albedos, {GEOMETRY_LR} geometry")
     line = (f"{label} {scene.num_tris} tris {W}x{H} b{BOUNCES} Adam "
-            f"({rates}) over "
-            f"{len(trainable)} leaves, whole-frame gradient: {med:.4f} s/step "
-            f"median ({len(device_s)} steps "
-            f"{[round(x, 4) for x in device_s]} s, spread "
-            f"{(max(device_s) - min(device_s)) / min(device_s):.2%}), "
-            f"{segs / med / 1e6:.3f} M segments/s forward+backward; peak "
-            f"memory {peak / 2 ** 30:.3f} GiB; host enqueue "
-            f"{float(np.median(host_s)):.4f} s vs device {med:.4f} s per "
-            f"step; launches {totals} over the steps ({per_step} per "
-            f"step); loss {losses[0]:.6g} -> {losses[-1]:.6g} | {card}")
-    if profile:
-        profile_step(label, step_fn, trainable, opt, start, basis, target,
-                     med, hit, out_dir)
-    return line, totals, med
+            f"({rates}) over {len(trainable)} leaves, whole-frame gradient, "
+            f"{steps} steps: launches {totals} over the steps ({per_step} "
+            f"per step), one packing a step; loss {losses[0]:.6g} -> "
+            f"{losses[-1]:.6g} | {card}")
+    return line, totals
 
 
-def phase5_training(device, terrain, card, profile, out_dir):
-    line, totals, med = train_path("terrain", *terrain, card, TRAIN_STEPS,
-                                   "closest_hit", profile, out_dir)
+def phase5_training(device, terrain, card):
+    line, totals = train_path("terrain", *terrain, card, TRAIN_STEPS,
+                              "closest_hit")
     print(f"phase 5 training path: {line}", flush=True)
-    return totals, med
+    return totals
 
 
 def train_optimizer(leaves, fields=DEFAULT_TRAINABLE):
@@ -1822,41 +1702,6 @@ def train_optimizer(leaves, fields=DEFAULT_TRAINABLE):
               {"params": [v for k, v in names.items() if k not in colour],
                "lr": GEOMETRY_LR}]
     return torch.optim.Adam([g for g in groups if g["params"]])
-
-
-def profile_step(label, step_fn, trainable, opt, scene, basis, target,
-                 step_s, hit, out_dir):
-    """Where one training step's time goes (measurement only): its device
-    kernels under torch.profiler against the step's median device time.
-    With ``out_dir``, the profiler's table goes to
-    chip_smoke_profile_train_<label>.txt there."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        step_fn(trainable, opt, scene, basis, target, 0)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-
-    def us(key):
-        return [e.time_range.elapsed_us() for e in kernels if key in e.name]
-
-    # the textured variant is an instantiation of the same kernel function
-    hit_us, scatter_us = us(hit.removesuffix("_tex")), us("scatter_rows")
-    if out_dir:
-        table = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=40)
-        with open(os.path.join(out_dir,
-                               f"chip_smoke_profile_train_{label}.txt"),
-                  "w") as f:
-            f.write(table)
-    print(f"profile: {label} training step {len(kernels)} device kernels busy "
-          f"{busy_us / 1e3:.3f} ms ({busy_us / 1e6 / step_s:.1%} of the "
-          f"median step's {step_s * 1e3:.3f} ms); {hit} {hit_us} us, "
-          f"scatter_rows {scatter_us} us "
-          f"({(sum(hit_us) + sum(scatter_us)) / max(busy_us, 1):.1%} of "
-          f"device time)", flush=True)
 
 
 def grad_gate(label, g, ref, tol=GRAD_PARITY):
@@ -1941,43 +1786,27 @@ def phase6b_nee_grad_parity(device, terrain_nee):
           f"{GRAD_PARITY})", flush=True)
 
 
-def nee_render(phase, name, scene, cam, params, want, card, profile,
-               out_dir):
-    """A NEE path on one scene: ``render_path`` held to ``want``, then,
-    ungated, the image mean against a ``nee=False`` render of the same
-    frames → the launch counts of the checked render."""
-    img, counts, runs, enqueue_s = render_path(f"{name} NEE", scene, cam,
-                                               params, want)
-    basis = rt.camera_basis(cam)
-    plain = render_progressive(scene, basis, params.replace(nee=False),
-                               FRAMES)
-    segs = W * H * (BOUNCES + 1) * FRAMES
+def nee_render(phase, name, scene, cam, params, want, card):
+    """A NEE path on one scene: ``render_path`` held to ``want`` → the
+    launch counts of the checked render."""
+    img, counts = render_path(f"{name} NEE", scene, cam, params, want)
     print(f"phase {phase} NEE path: {name} {scene.num_tris} tris {W}x{H} "
           f"b{BOUNCES} {FRAMES} frames nee+mis skybox={params.skybox}: "
-          f"{rate_text(runs, segs)}; host enqueue {enqueue_s:.4f} s of the "
-          f"first); launches {counts}; image mean "
-          f"{float(img.mean()):.5f} vs {float(plain.mean()):.5f} with "
-          f"nee=False (same frames, ungated) | {card}", flush=True)
-    if out_dir:
-        np.save(os.path.join(out_dir, f"chip_smoke_{name}.npy"),
-                img[::4, ::4].cpu().numpy())
-    if profile:
-        profile_frame(name, scene, basis, params, out_dir)
+          f"launches {counts}; image mean {float(img.mean()):.5f} | {card}",
+          flush=True)
     return counts
 
 
-def phase7_nee_path(device, terrain_nee, card, profile, out_dir):
+def phase7_nee_path(device, terrain_nee, card):
     params = rt.RenderParams(**PARAMS, **NEE)
     if resolved_backend(params, terrain_nee[0]) != "cuda":
         raise AssertionError("backend 'auto' did not resolve to cuda")
     want = launches(closest_hit=FRAMES * (BOUNCES + 1),
                     any_hit=FRAMES * BOUNCES,
                     hit_record=FRAMES * (BOUNCES + 1))
-    counts = nee_render("7", "terrain_nee", *terrain_nee, params, want, card,
-                        profile, out_dir)
+    counts = nee_render("7", "terrain_nee", *terrain_nee, params, want, card)
     room = rt.builtin_scene("room", aspect=W / H, device=device)
-    nee_render("7", "room", *room, params.replace(skybox=False), want, card,
-               profile, None)
+    nee_render("7", "room", *room, params.replace(skybox=False), want, card)
     return counts["any_hit"]
 
 
@@ -2078,7 +1907,7 @@ def phase2d_blocked_vs_plain(device, terrain, large, large_nee, huge):
     planes = ch.scene_planes(scene)
     b1_supers = W * H * planes.sup.shape[0]
     b1_floor = bound(0, OPS_PER_BOX * b1_supers)
-    lib = bh._library()
+    lib = build.library("blocked_hit", bh.SIGNATURES)
     print(f"phase 2d main-path shape ({W}x{H} primary rays, blocked pixel "
           f"order; ms with the plane cache warm / cleared before each call "
           f"/ packing alone): " + "; ".join(
@@ -2129,39 +1958,28 @@ def phase2d_blocked_vs_plain(device, terrain, large, large_nee, huge):
                 mismatches=side["terrain190k"]["mism"], library_ms=None, **b)
 
 
-def phase8_large_scene(device, large, large_nee, build_s, card, profile,
-                       out_dir):
+def phase8_large_scene(device, large, large_nee, card):
     scene, cam = large
     params = rt.RenderParams(**PARAMS)
     if not bh.uses_blocked(scene) or resolved_backend(params, scene) != "cuda":
         raise AssertionError("terrain190k does not take the streaming kernel")
-    img, counts, runs, enqueue_s = render_path(
+    img, counts = render_path(
         "terrain190k", scene, cam, params,
         launches(blocked_hit=FRAMES * (BOUNCES + 1),
                  hit_record=FRAMES * (BOUNCES + 1)))
-    segs = W * H * 1 * (BOUNCES + 1) * FRAMES
     print(f"phase 8 large-scene forward: terrain190k {scene.num_tris} tris "
           f"({scene.padded_tris} padded, {bh.block_layout(scene)[2]} blocks "
-          f"of {bh.BLOCK}; both large scenes built on the host in "
-          f"{build_s:.2f} s) {W}x{H} b{BOUNCES} {FRAMES} frames: {rate_text(runs, segs)}; "
-          f"host enqueue {enqueue_s:.4f} s of the first), "
+          f"of {bh.BLOCK}) {W}x{H} b{BOUNCES} {FRAMES} frames: "
           f"{counts['blocked_hit']} streaming and {counts['closest_hit']} "
           f"closest-hit launches, image mean {float(img.mean()):.4f} | "
           f"{card}", flush=True)
-    if out_dir:
-        np.save(os.path.join(out_dir, "chip_smoke_terrain190k.npy"),
-                img[::4, ::4].cpu().numpy())
-    if profile:
-        profile_frame("terrain190k", scene, rt.camera_basis(cam), params,
-                      out_dir)
     nee_render("8", "terrain190k_nee", *large_nee,
                rt.RenderParams(**PARAMS, **NEE),
                launches(blocked_hit=FRAMES * (BOUNCES + 1) + FRAMES * BOUNCES,
                         blocked_hit_ids=FRAMES * BOUNCES,
-                        hit_record=FRAMES * (BOUNCES + 1)),
-               card, profile, out_dir)
-    line, _, _ = train_path("terrain190k", scene, cam, card,
-                            LARGE_TRAIN_STEPS, "blocked_hit", False, None)
+                        hit_record=FRAMES * (BOUNCES + 1)), card)
+    line, _ = train_path("terrain190k", scene, cam, card, LARGE_TRAIN_STEPS,
+                         "blocked_hit")
     print(f"phase 8 large-scene training: {line}", flush=True)
     torch.cuda.empty_cache()
     off, diff = image_parity("terrain190k", scene, cam)
@@ -2260,12 +2078,12 @@ def phase2e_textured_vs_plain(device, terrain, terrain_tex, large, large_tex,
                   work["ops"])
         planes = ch.scene_planes(tex)
         if key == "closest_hit_tex":
-            lib, shape = ch._library(), (planes.n_clusters,
-                                         planes.sup.shape[0])
+            lib = build.library("closest_hit", ch.SIGNATURES)
+            shape = (planes.n_clusters, planes.sup.shape[0])
             shared = lib.rtt_closest_hit_shared_bytes(*shape)
             per_sm = lib.rtt_closest_hit_blocks_per_sm(*shape, 1, 1)
         else:
-            lib = bh._library()
+            lib = build.library("blocked_hit", bh.SIGNATURES)
             shared = lib.rtt_blocked_hit_shared_bytes()
             per_sm = lib.rtt_blocked_hit_blocks_per_sm(1, 1)
         reg = [r for fn, r in regs[key[:-4]].items() if "ILb1ELb1E" in fn]
@@ -2545,8 +2363,7 @@ def phase2g_srgb_vs_numpy(device):
     return entry
 
 
-def phase9_textured(device, terrain_tex, terrain_nee_tex, large_tex,
-                    untextured_rate, card, profile, out_dir):
+def phase9_textured(device, terrain_tex, terrain_nee_tex, large_tex, card):
     """The textured paths: the forward render of terrain_tex through the
     closest-hit kernel's textured variant and of terrain190k_tex through
     the streaming kernel's, the NEE render of terrain_nee_tex (the
@@ -2556,37 +2373,27 @@ def phase9_textured(device, terrain_tex, terrain_nee_tex, large_tex,
     scatter-add's of the training steps."""
     scene, cam = terrain_tex
     params = rt.RenderParams(**PARAMS)
-    segs = W * H * 1 * (BOUNCES + 1) * FRAMES
     counts = {}
     for name, (s, c), key in (("terrain_tex", terrain_tex, "closest_hit_tex"),
                               ("terrain190k_tex", large_tex,
                                "blocked_hit_tex")):
-        img, got, runs, enqueue_s = render_path(
-            name, s, c, params, launches(**{key: FRAMES * (BOUNCES + 1)}))
+        img, got = render_path(name, s, c, params,
+                               launches(**{key: FRAMES * (BOUNCES + 1)}))
         counts[key] = got[key]
-        rate = segs / float(np.median(runs))
         print(f"phase 9 textured forward: {name} {s.num_tris} tris, "
               f"{s.num_textures} textures of {TEX_RES}x{TEX_RES} (albedo and "
-              f"normal map) {W}x{H} b{BOUNCES} {FRAMES} frames: "
-              f"{rate_text(runs, segs)}; host enqueue {enqueue_s:.4f} s of "
-              f"the first); {rate / untextured_rate:.3f} x phase 3's "
-              f"untextured terrain ({untextured_rate / 1e6:.3f} M "
-              f"segments/s); launches {got}; image mean "
-              f"{float(img.mean()):.4f} | {card}", flush=True)
-        if out_dir:
-            np.save(os.path.join(out_dir, f"chip_smoke_{name}.npy"),
-                    img[::4, ::4].cpu().numpy())
-        if profile:
-            profile_frame(name, s, rt.camera_basis(c), params, out_dir)
+              f"normal map) {W}x{H} b{BOUNCES} {FRAMES} frames: launches "
+              f"{got}; image mean {float(img.mean()):.4f} | {card}",
+              flush=True)
         del img
     nee_render("9", "terrain_nee_tex", *terrain_nee_tex,
                rt.RenderParams(**PARAMS, **NEE),
                launches(closest_hit_tex=FRAMES * (BOUNCES + 1),
-                        any_hit=FRAMES * BOUNCES), card, profile, out_dir)
+                        any_hit=FRAMES * BOUNCES), card)
     off, diff = image_parity("terrain_tex", scene, cam)
-    line, totals, _ = train_path("terrain_tex", scene, cam, card,
-                                 TEX_TRAIN_STEPS, "closest_hit_tex", profile,
-                                 out_dir, textured=True)
+    line, totals = train_path("terrain_tex", scene, cam, card,
+                              TEX_TRAIN_STEPS, "closest_hit_tex",
+                              textured=True)
     counts["scatter_rows_rows"] = totals["scatter_rows_rows"]
     print(f"phase 9 texture recovery: {line}", flush=True)
     torch.cuda.empty_cache()
@@ -2618,20 +2425,15 @@ ADAPTIVE_TARGET, ADAPTIVE_MAX = 0.05, 64   # the ungated adaptive run
 DENOISE_ITERATIONS = 3
 REMAT_RTOL, REMAT_ATOL = 1e-3, 1e-7   # tests/test_grad.py's remat bound
 COMPACTIONS = ("octant", "morton")
-EXTRA_TRIALS = 3   # timed renders / steps per variant in phase 10
 
 
 def aov_path(label, scene, cam, key):
     """Every AOV of ``scene`` at 1920x1080 through ``render_aov``: each
     call launches kernel ``key`` once and no other kernel but, on an
-    untextured scene, the hit-record kernel once; ms of each (CUDA events,
-    after a warm-up call) → text."""
+    untextured scene, the hit-record kernel once → text."""
     basis = rt.camera_basis(cam)
     params = rt.RenderParams(**PARAMS)
-    out = []
     for aov in renderer.AOVS:
-        rt.render_aov(scene, basis, params, aov)
-        torch.cuda.synchronize()
         reset_counts()
         img = rt.render_aov(scene, basis, params, aov)
         torch.cuda.synchronize()
@@ -2641,9 +2443,7 @@ def aov_path(label, scene, cam, key):
             raise AssertionError(f"{label} AOV {aov}: launches {counts}")
         if img.shape[:2] != (H, W) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{label} AOV {aov} is not finite (H, W, C)")
-        ms = cuda_ms(lambda: rt.render_aov(scene, basis, params, aov), 5)
-        out.append(f"{aov} {ms:.3f} ms")
-    return f"{label} ({key} x1 each): " + ", ".join(out)
+    return f"{label} ({key} x1 each): " + ", ".join(renderer.AOVS)
 
 
 def aov_parity(scene, cam):
@@ -2711,13 +2511,10 @@ def adaptive_path(scene, cam):
     at ADAPTIVE_TARGET → text."""
     basis = rt.camera_basis(cam)
     params = rt.RenderParams(**PARAMS)
-    torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
     mean, used = rt.render_adaptive(scene, basis, params, ADAPTIVE_FRAMES,
                                     0.0, chunk=ADAPTIVE_CHUNK)
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
     counts = read_counts()
     want = launches(closest_hit=ADAPTIVE_FRAMES * (BOUNCES + 1),
                     hit_record=ADAPTIVE_FRAMES * (BOUNCES + 1))
@@ -2728,15 +2525,12 @@ def adaptive_path(scene, cam):
     if excess > 1.0:
         raise AssertionError(f"adaptive mean vs progressive: {excess} x "
                              f"the tolerance")
-    t0 = time.perf_counter()
     _, used_t = rt.render_adaptive(scene, basis, params, ADAPTIVE_MAX,
                                    ADAPTIVE_TARGET, chunk=ADAPTIVE_CHUNK)
-    secs_t = time.perf_counter() - t0
-    return (f"target 0: {used} frames in {secs:.3f} s, {counts['closest_hit']}"
-            f" closest-hit launches, mean vs render_progressive worst "
-            f"{excess:.3g} of rtol 1e-4; target {ADAPTIVE_TARGET} (chunk "
-            f"{ADAPTIVE_CHUNK}, cap {ADAPTIVE_MAX}, ungated): {used_t} frames "
-            f"in {secs_t:.3f} s")
+    return (f"target 0: {used} frames, {counts['closest_hit']} closest-hit "
+            f"launches, mean vs render_progressive worst {excess:.3g} of "
+            f"rtol 1e-4; target {ADAPTIVE_TARGET} (chunk {ADAPTIVE_CHUNK}, "
+            f"cap {ADAPTIVE_MAX}, ungated): {used_t} frames")
 
 
 def denoise_path(scene, cam):
@@ -2745,7 +2539,7 @@ def denoise_path(scene, cam):
     tile's diffuse draw, so its noise comes in 512-pixel blotches, not
     from pixel to pixel): finite, the image mean within 5%, the
     high-frequency energy (mean |difference between rows|) below 0.6 of
-    the input's; ms of the filter and of the whole call → text."""
+    the input's → text."""
     basis = rt.camera_basis(cam)
     params = rt.RenderParams(**dict(PARAMS, coherent_scatter=False))
     img = render_frame(scene, basis, params, 0)
@@ -2763,30 +2557,19 @@ def denoise_path(scene, cam):
     if not hf(out) < 0.6 * hf(img):
         raise AssertionError(f"denoise: high frequencies {hf(img)} -> "
                              f"{hf(out)}")
-    normal = rt.render_aov(scene, basis, params, "normal")
-    depth = rt.render_aov(scene, basis, params, "depth")
-    ms = cuda_ms(lambda: rt.denoise(img, normal, depth,
-                                    iterations=DENOISE_ITERATIONS), 3)
-    ms_all = cuda_ms(lambda: rt.denoise_render(
-        scene, basis, params, img, iterations=DENOISE_ITERATIONS), 3)
     return (f"1080p, {DENOISE_ITERATIONS} iterations: mean {m_in:.5f} -> "
             f"{m_out:.5f}, high frequencies {hf(img):.5f} -> {hf(out):.5f} "
-            f"({hf(out) / hf(img):.3f} x, gate 0.6); denoise {ms:.3f} ms, "
-            f"denoise_render (two AOVs and the filter) {ms_all:.3f} ms")
+            f"({hf(out) / hf(img):.3f} x, gate 0.6)")
 
 
-def qmc_path(scene, cam, card, terrain_rate):
+def qmc_path(scene, cam, card):
     """The 8-frame ``qmc=True`` render through ``render_path`` (closest-hit
     launches frames x (bounces + 1), finite, not constant) → text."""
-    img, counts, runs, _ = render_path(
+    img, counts = render_path(
         "terrain qmc", scene, cam, rt.RenderParams(**PARAMS, qmc=True),
         launches(closest_hit=FRAMES * (BOUNCES + 1),
                  hit_record=FRAMES * (BOUNCES + 1)))
-    segs = W * H * (BOUNCES + 1) * FRAMES
-    rate = segs / float(np.median(runs))
-    return (f"{rate_text(runs, segs)}; {rate / terrain_rate:.3f} x phase "
-            f"3's {terrain_rate / 1e6:.3f} M segments/s; "
-            f"{counts['closest_hit']} closest-hit launches; image mean "
+    return (f"{counts['closest_hit']} closest-hit launches; image mean "
             f"{float(img.mean()):.4f} | {card}")
 
 
@@ -2917,33 +2700,9 @@ def compaction_equality(label, scene, cam, params):
     return f"{label} bit-equal"
 
 
-def compaction_rates(scene, cam, card):
-    """The 8-frame main-path render off and in each compaction, turn about
-    (EXTRA_TRIALS rounds after a warm-up frame each), with the coherent
-    frames' mean and fraction of pixels off against the uncompacted
-    frame, ungated → text."""
-    basis = rt.camera_basis(cam)
-    modes = ("off",) + COMPACTIONS
-    params = {m: rt.RenderParams(**PARAMS, compaction=False if m == "off"
-                                 else m) for m in modes}
-    frames = {m: render_frame(scene, basis, params[m], 0) for m in modes}
-    runs = {m: [] for m in modes}
-    for _ in range(EXTRA_TRIALS):
-        for m in modes:
-            runs[m].append(timed_render(scene, basis, params[m], FRAMES)[1])
-    segs = W * H * (BOUNCES + 1) * FRAMES
-    return "; ".join(
-        f"{m} {segs / float(np.median(runs[m])) / 1e6:.3f} M segments/s "
-        f"({[round(r, 4) for r in runs[m]]} s), frame mean "
-        f"{float(frames[m].mean()):.5f}, frac_off vs off "
-        f"{frac_off(frames[m], frames['off']):.4f}" for m in modes) + \
-        f" | {card}"
-
-
-def step_times(scene, cam, params, steps=EXTRA_TRIALS):
-    """``make_train_step`` at ``params`` from train_setup's start: one
-    warm-up and ``steps`` timed steps → (s/step median, peak GiB, launches
-    of the last step)."""
+def step_launches(scene, cam, params):
+    """One ``make_train_step`` step at ``params`` from train_setup's start
+    → its launches."""
     basis = rt.camera_basis(cam)
     with torch.no_grad():
         target = render_frame(scene, basis, params, 0)
@@ -2952,27 +2711,15 @@ def step_times(scene, cam, params, steps=EXTRA_TRIALS):
         sphere_albedo=scene.sphere_albedo * ALBEDO_START)
     init_fn, step_fn = make_train_step(params, train_optimizer)
     trainable, opt = init_fn(start, DEFAULT_TRAINABLE)
-    secs = []
+    reset_counts()
+    step_fn(trainable, opt, start, basis, target, 0)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for step in range(1 + steps):
-        reset_counts()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        trainable, opt, _ = step_fn(trainable, opt, start, basis, target, 0)
-        ev1.record()
-        torch.cuda.synchronize()
-        if step:
-            secs.append(ev0.elapsed_time(ev1) / 1e3)
-    return (float(np.median(secs)), torch.cuda.max_memory_allocated()
-            / 2 ** 30, read_counts())
+    return read_counts()
 
 
 def compaction_training(scene, cam):
     """The 256x144 training gradient with each compaction against without
-    (coherent scatter off), then s/step of the 1080p training step off and
-    with each compaction → text."""
+    (coherent scatter off) → text."""
     basis = rt.camera_basis(cam.replace(aspect=256 / 144))
     params = rt.RenderParams(**dict(PARAMS, width=256, height=144,
                                     coherent_scatter=False))
@@ -2990,23 +2737,15 @@ def compaction_training(scene, cam):
         worst, leaf, _ = grad_gate(f"compacted gradient ({mode})", g, ref)
         out.append(f"{mode} largest max |diff| / max |g| {worst:.3g} "
                    f"({leaf})")
-    steps = []
-    for mode in ("off",) + COMPACTIONS:
-        p = rt.RenderParams(**PARAMS, compaction=False if mode == "off"
-                            else mode)
-        s, peak, _ = step_times(scene, cam, p)
-        steps.append(f"{mode} {s:.4f} s/step ({peak:.3f} GiB)")
-        torch.cuda.empty_cache()
     return (f"256x144 gradient vs uncompacted (coherent off, gate "
-            f"{GRAD_PARITY}): " + ", ".join(out) + "; 1080p training step: "
-            + ", ".join(steps))
+            f"{GRAD_PARITY}): " + ", ".join(out))
 
 
 def remat_path(scene, cam, card):
     """One 1080p training step (the MSE over DEFAULT_TRAINABLE from
     train_setup's start) with remat against without: the forward images
     bit-equal, the gradients within REMAT_RTOL / REMAT_ATOL, the launches
-    of each step; then s/step and peak memory of each → text."""
+    of each step → text."""
     basis = rt.camera_basis(cam)
     params = rt.RenderParams(**PARAMS)
     with torch.no_grad():
@@ -3036,27 +2775,17 @@ def remat_path(scene, cam, card):
             raise AssertionError(f"remat gradient of {k}: {excess} x the "
                                  f"tolerance")
         worst = max(worst, excess)
-    steps = {}
-    for remat in (False, True, True, False):
-        s, peak, counts = step_times(scene, cam, params.replace(remat=remat),
-                                     steps=1)
-        # remat's backward reruns each segment's forward, recompute too
-        seg = (BOUNCES + 1) * (2 if remat else 1)
-        if (counts["hit_record"], counts["hit_record_vjp"]) != (
-                seg, BOUNCES + 1):
-            raise AssertionError(f"remat={remat}: launches {counts}, want "
-                                 f"{seg} hit-record and {BOUNCES + 1} "
-                                 f"hit-record VJP a step")
-        steps.setdefault(remat, []).append((s, peak, counts))
-        torch.cuda.empty_cache()
     text = []
     for remat in (False, True):
-        s = [x[0] for x in steps[remat]]
-        c = steps[remat][0][2]
-        text.append(f"remat={remat}: {float(np.median(s)):.4f} s/step "
-                    f"({[round(x, 4) for x in s]}), peak "
-                    f"{max(x[1] for x in steps[remat]):.3f} GiB, "
-                    f"{c['closest_hit']} closest-hit, "
+        c = step_launches(scene, cam, params.replace(remat=remat))
+        # remat's backward reruns each segment's forward, recompute too
+        seg = (BOUNCES + 1) * (2 if remat else 1)
+        if (c["hit_record"], c["hit_record_vjp"]) != (seg, BOUNCES + 1):
+            raise AssertionError(f"remat={remat}: launches {c}, want "
+                                 f"{seg} hit-record and {BOUNCES + 1} "
+                                 f"hit-record VJP a step")
+        torch.cuda.empty_cache()
+        text.append(f"remat={remat}: {c['closest_hit']} closest-hit, "
                     f"{c['scatter_rows']} scatter-add, {c['hit_record']} "
                     f"hit-record and {c['hit_record_vjp']} hit-record VJP "
                     f"launches a step")
@@ -3066,7 +2795,7 @@ def remat_path(scene, cam, card):
 
 
 def phase10_image_extras(device, terrain, terrain_nee, terrain_tex, large,
-                         terrain_rate, card):
+                         card):
     """The image extras on the card: AOVs, adaptive sampling, QMC, the
     denoiser, wavefront compaction and remat (module docstring)."""
     print("phase 10 AOVs 1080p: " + "; ".join(
@@ -3079,7 +2808,7 @@ def phase10_image_extras(device, terrain, terrain_nee, terrain_tex, large,
     print(f"phase 10 adaptive (terrain 1080p): {adaptive_path(*terrain)}",
           flush=True)
     print(f"phase 10 QMC (terrain 1080p, {FRAMES} frames): "
-          f"{qmc_path(*terrain, card, terrain_rate)}", flush=True)
+          f"{qmc_path(*terrain, card)}", flush=True)
     print(f"phase 10 denoiser (terrain, coherent scatter off): "
           f"{denoise_path(*terrain)}",
           flush=True)
@@ -3100,9 +2829,6 @@ def phase10_image_extras(device, terrain, terrain_nee, terrain_tex, large,
         print(f"phase 10 compaction kernel ms, {label} 1080p wavefronts "
               f"(sorted vs unsorted, same rays): {text} | {card}",
               flush=True)
-    print(f"phase 10 compaction rates (terrain 1080p, {FRAMES} frames, "
-          f"coherent scatter on): {compaction_rates(*terrain, card)}",
-          flush=True)
     print(f"phase 10 compaction training (terrain): "
           f"{compaction_training(*terrain)}", flush=True)
     print(f"phase 10 remat (terrain 1080p training step): "
@@ -3118,7 +2844,7 @@ def phase10_image_extras(device, terrain, terrain_nee, terrain_tex, large,
 TORUS = dict(R=1.0, r=0.4, nu=112, nv=70)
 TORUS_TEX = 256        # its base-colour map, TORUS_TEX x TORUS_TEX RGB
 EDGE_SAMPLES = 4096    # boundary samples a family (the reference's default)
-EDGE_TRAIN_STEPS = 3   # timed 1080p training steps with edge gradients
+EDGE_TRAIN_STEPS = 4   # 1080p training steps with edge gradients
 # the reference CPU test's recovery (tests/test_invert_vertices.py:95-122)
 OCTA = dict(subdiv=2, size=64, views=4, steps=300, edge_samples=1024,
             sobolev_lam=2.0, frame_cycle=2, ext=2.0)
@@ -3295,32 +3021,26 @@ def same_meshes(a, b):
 
 def load_both_parsers(path):
     """load_meshes through the native parser and through the Python one:
-    both must run here and agree → (native s, Python s)."""
+    both must run here and agree."""
     if not native.available():
         raise AssertionError("the native OBJ parser did not build here")
-    t0 = time.perf_counter()
     fast = loaders.load_meshes(path)
-    t1 = time.perf_counter()
     parse = native.parse_obj
     native.parse_obj = lambda p: None     # the pure-Python parser
     try:
         slow = loaders.load_meshes(path)
     finally:
         native.parse_obj = parse
-    t2 = time.perf_counter()
     if not same_meshes(fast, slow):
         raise AssertionError(f"{path}: the native and Python parsers differ")
-    return t1 - t0, t2 - t1
 
 
 def loaded_scene(path, device, **kw):
     """``load_model`` of ``path`` at the origin into a new builder, built
-    on ``device`` → (scene, load + build seconds)."""
-    t0 = time.perf_counter()
+    on ``device``."""
     b = rt.SceneBuilder(texture_resolution=TEX_RES)
     rt.load_model(path, b, placement="origin", **kw)
-    scene = b.build(device=device)
-    return scene, time.perf_counter() - t0
+    return b.build(device=device)
 
 
 def torus_camera(aspect):
@@ -3331,13 +3051,13 @@ def torus_camera(aspect):
 def loading_path(device, paths, card):
     """Part 1: the models through both parsers, then the loaded terrain190k
     OBJ (B4) and textured GLB torus (B1-tex) rendered at the main path's
-    settings and held to the plain path at 256x144 → the loaded
-    terrain190k scene."""
-    t_obj = {k: load_both_parsers(paths[k])
-             for k in ("terrain190k.obj", "torus.obj")}
-    big, big_s = loaded_scene(paths["terrain190k.obj"], device,
-                              albedo=(0.7, 0.5, 0.3), smoothness=0.3)
-    glb, glb_s = loaded_scene(paths["torus.glb"], device)
+    settings and held to the plain path at 256x144."""
+    objs = ("terrain190k.obj", "torus.obj")
+    for k in objs:
+        load_both_parsers(paths[k])
+    big = loaded_scene(paths["terrain190k.obj"], device,
+                       albedo=(0.7, 0.5, 0.3), smoothness=0.3)
+    glb = loaded_scene(paths["torus.glb"], device)
     if big.num_tris != 2 * (LARGE_N - 1) ** 2 or not bh.uses_blocked(big):
         raise AssertionError(f"the loaded OBJ has {big.num_tris} triangles")
     if glb.num_textures != 1 or glb.num_tris != 2 * TORUS["nu"] * TORUS["nv"]:
@@ -3345,68 +3065,25 @@ def loading_path(device, paths, card):
     params = rt.RenderParams(**PARAMS)
     cam = rt.Camera(origin=(0.0, 1.5, 6.0), look_at=(0.0, -0.8, 0.0),
                     fov=45.0, aspect=W / H)
-    segs = W * H * (BOUNCES + 1) * FRAMES
     out = []
     for label, scene, cam_, key in (
             ("terrain190k.obj", big, cam, "blocked_hit"),
             ("torus.glb", glb, torus_camera(W / H), "closest_hit_tex")):
-        img, c, runs, _ = render_path(
+        _, c = render_path(
             f"loaded {label}", scene, cam_, params,
             launches(**{key: FRAMES * (BOUNCES + 1)},
                      hit_record=0 if key in TEXTURED
                      else FRAMES * (BOUNCES + 1)))
         off, diff = image_parity(f"loaded {label}", scene, cam_)
-        out.append(f"{label} {scene.num_tris} tris: {rate_text(runs, segs)}"
-                   f"), {c[key]} {key} launches, 256x144 parity frac_off "
-                   f"{off} (gate {PARITY_GATE}) max |diff| {diff}")
+        out.append(f"{label} {scene.num_tris} tris: {c[key]} {key} "
+                   f"launches, 256x144 parity frac_off {off} (gate "
+                   f"{PARITY_GATE}) max |diff| {diff}")
     print(f"phase 11 loading (native parser built: {native.available()}): "
-          + "; ".join(f"{k} native {a:.3f} s, Python {b:.3f} s, equal"
-                      for k, (a, b) in t_obj.items())
-          + f"; load_model + build: terrain190k.obj {big_s:.3f} s, "
-          f"torus.glb {glb_s:.3f} s (texture {TORUS_TEX}x{TORUS_TEX} PNG, "
-          f"decoded by the port's codec) | {card}", flush=True)
+          f"{' and '.join(objs)} equal through both parsers; torus.glb's "
+          f"texture {TORUS_TEX}x{TORUS_TEX} PNG decoded by the port's codec "
+          f"| {card}", flush=True)
     print(f"phase 11 loaded renders {W}x{H} b{BOUNCES} {FRAMES} frames: "
           + "; ".join(out) + f" | {card}", flush=True)
-    return big
-
-
-def timed_estimate(scene, basis, params, cot, topo, n_sph, seed):
-    """One boundary estimate through the kernels, timed: the draws, then
-    ``gradients_from_draws`` with a spy timing each side-ray trace (CUDA
-    events) → (draws, gradients, the launch counts of the gradients,
-    {draws, traces, rest} ms)."""
-    g = torch.Generator(device=scene.device)
-    g.manual_seed(seed)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    ev[0].record()
-    draws = edges.draw_edge_samples(scene, basis, params, g, EDGE_SAMPLES,
-                                    n_sph, topo)
-    ev[1].record()
-    traces, real = [], edges._radiance_at
-
-    def spy(*a, **kw):
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        out = real(*a, **kw)
-        e1.record()
-        traces.append((e0, e1))
-        return out
-
-    edges._radiance_at = spy
-    try:
-        reset_counts()
-        ev[2].record()
-        grads = edges.gradients_from_draws(scene, basis, params, cot, draws,
-                                           topology=topo)
-        ev[3].record()
-        torch.cuda.synchronize()
-        counts = read_counts()
-    finally:
-        edges._radiance_at = real
-    trace_ms = sum(a.elapsed_time(b) for a, b in traces)
-    return draws, grads, counts, dict(
-        draws=ev[0].elapsed_time(ev[1]), traces=trace_ms,
-        rest=ev[2].elapsed_time(ev[3]) - trace_ms)
 
 
 def estimator_check(label, scene, cam, params, cot, topo, n_sph):
@@ -3414,9 +3091,15 @@ def estimator_check(label, scene, cam, params, cot, topo, n_sph):
     path on the same draws (grad_gate), its B1 launches held to 2 side
     traces x (bounces + 1) a family → text."""
     basis = rt.camera_basis(cam)
-    timed_estimate(scene, basis, params, cot, topo, n_sph, 0)    # warm-up
-    draws, got, counts, ms = timed_estimate(scene, basis, params, cot, topo,
-                                            n_sph, 1)
+    g = torch.Generator(device=scene.device)
+    g.manual_seed(1)
+    draws = edges.draw_edge_samples(scene, basis, params, g, EDGE_SAMPLES,
+                                    n_sph, topo)
+    reset_counts()
+    got = edges.gradients_from_draws(scene, basis, params, cot, draws,
+                                     topology=topo)
+    torch.cuda.synchronize()
+    counts = read_counts()
     families = 1 + (n_sph > 0 and scene.num_spheres > 0)
     key = "closest_hit_tex" if scene.num_textures else "closest_hit"
     n = 2 * (params.bounces + 1) * families
@@ -3431,9 +3114,7 @@ def estimator_check(label, scene, cam, params, cot, topo, n_sph):
         raise AssertionError(f"{label} estimator: all-zero edge gradient")
     return (f"{label} {params.width}x{params.height} b{params.bounces} "
             f"{EDGE_SAMPLES} edge + {n_sph if families > 1 else 0} sphere "
-            f"samples: draws {ms['draws']:.3f} ms, side traces "
-            f"{ms['traces']:.3f} ms, jvp/vjp and the rest {ms['rest']:.3f} "
-            f"ms; {counts[key]} {key} launches; kernels vs plain largest "
+            f"samples: {counts[key]} {key} launches; kernels vs plain largest "
             f"max |diff| / max |g| {worst:.3g} ({leaf}; gate {GRAD_PARITY})")
 
 
@@ -3446,9 +3127,9 @@ def mse_cot(scene, start, basis, params):
     return 2.0 * (img - target) / img.numel()
 
 
-def edge_train_steps(scene, cam, topo, card, phase5_s):
-    """EDGE_TRAIN_STEPS timed 1080p training steps (after one warm-up) of
-    phase 5's set-up with ``edge_samples=EDGE_SAMPLES`` and the topology:
+def edge_train_steps(scene, cam, topo, card):
+    """EDGE_TRAIN_STEPS 1080p training steps of phase 5's set-up with
+    ``edge_samples=EDGE_SAMPLES`` and the topology:
     per step (bounces + 1) B1 and B2 launches for the interior gradient,
     bounces + 1 B1 for the frame the cotangent is taken from, and 2 side
     traces x (bounces + 1) a family; one packing; every gradient finite
@@ -3462,17 +3143,13 @@ def edge_train_steps(scene, cam, topo, card, phase5_s):
     seg = BOUNCES + 1
     want = launches(closest_hit=seg + seg + 2 * 2 * seg, scatter_rows=seg,
                     hit_record=seg + seg + 2 * 2 * seg, hit_record_vjp=seg)
-    times, losses = [], []
-    for step in range(1 + EDGE_TRAIN_STEPS):
+    losses = []
+    for step in range(EDGE_TRAIN_STEPS):
         reset_counts()
         packs = ch.scene_planes.packs
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         trainable, opt, loss = step_fn(trainable, opt, start, basis, target,
                                        0)
         torch.cuda.synchronize()
-        if step:
-            times.append(time.perf_counter() - t0)
         counts = read_counts()
         if counts != want:
             raise AssertionError(f"edge training step {step}: launches "
@@ -3484,33 +3161,18 @@ def edge_train_steps(scene, cam, topo, card, phase5_s):
     for k, p in trainable.items():
         if not bool(torch.isfinite(p.grad).all()):
             raise AssertionError(f"edge training: {k}'s gradient not finite")
-    med = float(np.median(times))
     return (f"terrain {W}x{H} b{BOUNCES} with edge_samples={EDGE_SAMPLES} "
-            f"and topology: {med:.4f} s/step median "
-            f"({[round(x, 4) for x in times]}), phase 5's without "
-            f"{phase5_s:.4f} s/step; launches a step {want}, 1 packing; "
-            f"loss {losses[0]:.6g} -> {losses[-1]:.6g} | {card}")
+            f"and topology, {EDGE_TRAIN_STEPS} steps: launches a step "
+            f"{want}, 1 packing; loss {losses[0]:.6g} -> {losses[-1]:.6g} | "
+            f"{card}")
 
 
-def edge_path(device, terrain, big, paths, card, phase5_s):
+def edge_path(device, terrain, paths, card):
     """Part 2: the estimator on the torus (the recovery's 128² view of a
     10%-perturbed torus) and on terrain at 1080p against the plain path;
-    build_topology's seconds on the torus and on the loaded terrain190k;
     the 1080p training steps with edges."""
     torus, topo_t, center, ext = invert_vertices.recovery_scene(
         paths["torus.obj"], device)
-    t0 = time.perf_counter()
-    topology.build_topology(torus)
-    torus_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    topo_big = topology.build_topology(big)
-    big_s = time.perf_counter() - t0
-    print(f"phase 11 build_topology (host): torus {torus.num_tris} tris "
-          f"{topo_t.num_verts} vertices {topo_t.num_edges} edges "
-          f"{torus_s:.3f} s; terrain190k {big.num_tris} tris "
-          f"{topo_big.num_verts} vertices {topo_big.num_edges} edges "
-          f"{big_s:.3f} s", flush=True)
-    del topo_big
     g = torch.Generator(device=device)
     g.manual_seed(FULL["seed"])
     # the offsets move vertices, not connectivity: the topology holds
@@ -3537,7 +3199,7 @@ def edge_path(device, terrain, big, paths, card, phase5_s):
     print("phase 11 edge gradients: " + "; ".join(lines) + f" | {card}",
           flush=True)
     print("phase 11 edge training: "
-          + edge_train_steps(scene, tcam, topo, card, phase5_s), flush=True)
+          + edge_train_steps(scene, tcam, topo, card), flush=True)
 
 
 def recovery(label, scene, topo, center, ext, cfg):
@@ -3565,11 +3227,8 @@ def recovery(label, scene, topo, center, ext, cfg):
     want = launches(**{key: n}, scatter_rows=steps * 2 * seg,
                     hit_record=0 if tex else n,
                     hit_record_vjp=0 if tex else steps * 2 * seg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     packs = ch.scene_planes.packs
-    t0 = time.perf_counter()
     off, alb, losses = invert_vertices.run_vertex_recovery(
         scene, topo, params, bases, steps, start, np.array(START_ALBEDO),
         edge_samples=cfg["edge_samples"], frame_cycle=cfg["frame_cycle"],
@@ -3577,7 +3236,6 @@ def recovery(label, scene, topo, center, ext, cfg):
         smooth_weight=cfg.get("smooth_weight", 0.08),
         smooth_weight_end=cfg.get("smooth_weight", 0.08), ext=ext, log=False)
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
     counts = read_counts()
     packed = ch.scene_planes.packs - packs
     if counts != want:
@@ -3601,9 +3259,7 @@ def recovery(label, scene, topo, center, ext, cfg):
             f"{cfg['sobolev_lam']}: offset RMS {rms:.5f} of the extent "
             f"(start {START_RMS}), albedo error {alb_err:.4f}, loss "
             f"{losses[0]:.6g} -> {losses[-1]:.6g} (every "
-            f"{max(1, steps // 10)}th: {curve}); {secs / steps:.4f} s/step "
-            f"({secs:.1f} s), peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+            f"{max(1, steps // 10)}th: {curve}); "
             f"{packed / steps:.3f} packings a step, launches {counts} "
             f"({(counts[key] - before) / steps:.0f} {key} and "
             f"{counts['scatter_rows'] / steps:.0f} scatter-add a step)")
@@ -3645,12 +3301,11 @@ def recovery_path(device, paths, card):
           f"(ungated) | {card}", flush=True)
 
 
-def phase11_recovery(device, terrain, card, phase5_s):
+def phase11_recovery(device, terrain, card):
     """Mesh recovery and model loading (module docstring)."""
     paths = write_models()
-    big = loading_path(device, paths, card)
-    edge_path(device, terrain, big, paths, card, phase5_s)
-    del big
+    loading_path(device, paths, card)
+    edge_path(device, terrain, paths, card)
     torch.cuda.empty_cache()
     recovery_path(device, paths, card)
     return paths
@@ -3692,14 +3347,11 @@ def probe_grads(params, start, basis, target, fields=DEFAULT_TRAINABLE,
                 **step_kw):
     """One ``make_train_step`` step over ``fields`` from ``start`` with
     ``step_kw`` (mesh, grad_chunks, edge_samples, topology) → ({field:
-    gradient}, loss, step seconds to the card's end)."""
+    gradient}, loss)."""
     init_fn, step_fn = make_train_step(params, GradProbe, **step_kw)
     trainable, opt = init_fn(start, fields)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     _, opt, loss = step_fn(trainable, opt, start, basis, target, 0)
-    torch.cuda.synchronize()
-    return dict(zip(fields, opt.grads)), float(loss), time.perf_counter() - t0
+    return dict(zip(fields, opt.grads)), float(loss)
 
 
 def one_rank_path(device, scenes, card):
@@ -3736,14 +3388,13 @@ def one_rank_path(device, scenes, card):
                    f"{ {k: v for k, v in counts.items() if v} }")
     scene, cam = scenes["terrain"]
     _, (_, _, start, basis, target, _) = train_setup(scene, cam)
-    ref, loss, _ = probe_grads(params, start, basis, target)
-    got, loss_m, step_s = probe_grads(params, start, basis, target,
-                                      mesh=mesh)
+    ref, loss = probe_grads(params, start, basis, target)
+    got, loss_m = probe_grads(params, start, basis, target, mesh=mesh)
     worst, leaf, _ = grad_gate("one-rank training step", got, ref)
     return (f"backend {dist.get_backend()}, world {dist.get_world_size()}: "
             + ", ".join(out) + f"; training step gradient vs no mesh: worst "
             f"{worst:.3g} of max |g| ({leaf}; gate {GRAD_PARITY}), loss "
-            f"{loss_m:.6g} vs {loss:.6g}, {step_s:.4f} s | {card}")
+            f"{loss_m:.6g} vs {loss:.6g} | {card}")
 
 
 def rank_worker(rank, port, work, device):
@@ -3752,99 +3403,29 @@ def rank_worker(rank, port, work, device):
     tensors), the 1080p terrain frame of the whole group into
     ``work/frame<rank>.npy`` and the gradient of the training step on the
     mesh (grad_chunks=CHUNKS, edge_samples=EDGE_SAMPLES, the topology) into
-    ``work/grads<rank>.npz``, each after one warm-up; prints one JSON line
-    of its times."""
+    ``work/grads<rank>.npz``; prints one JSON line of its loss and
+    launches."""
     distributed.initialize(f"localhost:{port}", RANKS, rank, device=device,
                            backend="gloo")
     mesh = make_mesh(RANKS)
     scene, cam = terrain_scene(device)
     params = rt.RenderParams(**PARAMS)
-    basis = rt.camera_basis(cam)
-    times = []
-    for frame in (1, 0):              # a warm-up frame, then frame 0
-        dist.barrier()
-        torch.cuda.synchronize(device)
-        reset_counts()
-        t0 = time.perf_counter()
-        img = render_frame_distributed(scene, basis, params, frame, mesh)
-        torch.cuda.synchronize(device)
-        times.append(time.perf_counter() - t0)
+    reset_counts()
+    img = render_frame_distributed(scene, rt.camera_basis(cam), params, 0,
+                                   mesh)
+    torch.cuda.synchronize(device)
     counts = read_counts()
     np.save(os.path.join(work, f"frame{rank}.npy"), img.cpu().numpy())
-    collectives = gloo_on_cuda(device)
-    shard = img.reshape(-1, 3)[:W * H // RANKS].contiguous()
-    gather_ms = collective_ms(lambda: mesh.all_gather(shard))
     topo = topology.build_topology(scene)
     _, (_, _, start, basis, target, _) = train_setup(scene, cam)
-    step = dict(mesh=mesh, grad_chunks=CHUNKS, edge_samples=EDGE_SAMPLES,
-                topology=topo)
-    step_s = []
-    for _ in range(2):                # a warm-up step, then the one kept
-        dist.barrier()
-        grads, loss, s = probe_grads(params, start, basis, target, **step)
-        step_s.append(s)
+    grads, loss = probe_grads(params, start, basis, target, mesh=mesh,
+                              grad_chunks=CHUNKS, edge_samples=EDGE_SAMPLES,
+                              topology=topo)
     np.savez(os.path.join(work, f"grads{rank}.npz"),
              **{k: v.cpu().numpy() for k, v in grads.items()})
-    # one chunk's all-reduce: its loss and the trainables' cotangents
-    flat = torch.zeros(1 + sum(v.numel() for v in grads.values()),
-                       device=device)
-    reduce_ms = collective_ms(lambda: mesh.all_reduce(flat))
-    print(json.dumps({"rank": rank, "frame_s": times[1],
-                      "warmup_frame_s": times[0], "step_s": step_s[1],
-                      "warmup_step_s": step_s[0], "loss": loss,
-                      "gather_ms": gather_ms, "reduce_ms": reduce_ms,
-                      "reduce_floats": flat.numel(), "launches": counts,
-                      "gloo_on_cuda": collectives}), flush=True)
+    print(json.dumps({"rank": rank, "loss": loss, "launches": counts}),
+          flush=True)
     dist.destroy_process_group()
-
-
-def collective_ms(fn, reps=5):
-    """Mean ms of a collective ``fn()`` over both ranks, after one
-    warm-up, to the card's end on this rank."""
-    fn()
-    dist.barrier()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps * 1e3
-
-
-def gloo_on_cuda(device):
-    """Which collectives the installed gloo takes CUDA tensors for: each
-    run once on 4 floats, held to its result → {name: "ok" or the
-    error}."""
-    x = torch.full((4,), float(dist.get_rank() + 1), device=device)
-    total = float(sum(range(1, dist.get_world_size() + 1)))
-
-    def all_gather():
-        out = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(out, x)
-        return float(torch.cat(out)[::4].sum()) == total
-
-    def all_gather_into_tensor():
-        out = x.new_empty(4 * dist.get_world_size())
-        dist.all_gather_into_tensor(out, x)
-        return float(out[::4].sum()) == total
-
-    def all_reduce():
-        y = x.clone()
-        dist.all_reduce(y, async_op=True).wait()
-        return float(y[0]) == total
-
-    def broadcast():
-        y = x.clone()
-        dist.broadcast(y, 0)
-        return float(y[0]) == 1.0
-
-    out = {}
-    for fn in (all_gather, all_gather_into_tensor, all_reduce, broadcast):
-        try:
-            out[fn.__name__] = "ok" if fn() else "wrong result"
-        except RuntimeError as exc:   # a backend refusing CUDA tensors
-            out[fn.__name__] = str(exc).splitlines()[0][:120]
-    return out
 
 
 def free_port():
@@ -3915,10 +3496,8 @@ def two_rank_path(device, terrain, card):
         # the mesh walks RANKS x CHUNKS slabs; the same slabs in one
         # process hold the same share tiles (518,400 pixels is no whole
         # number of 512-lane tiles, so CHUNKS slabs would draw otherwise)
-        ref, ref_loss, ref_s = probe_grads(
-            params, start, basis, target, grad_chunks=RANKS * CHUNKS, **step)
-        other, _, _ = probe_grads(params, start, basis, target,
-                                  grad_chunks=CHUNKS, **step)
+        ref, ref_loss = probe_grads(params, start, basis, target,
+                                    grad_chunks=RANKS * CHUNKS, **step)
     finally:
         outs = wait_ranks(procs, work)
     lines = [json.loads(o.strip().splitlines()[-1]) for o in outs]
@@ -3940,51 +3519,35 @@ def two_rank_path(device, terrain, card):
         with np.load(os.path.join(work, f"grads{r}.npz")) as z:
             grads.append({k: torch.from_numpy(z[k]).to(device) for k in z})
     worst, leaf, _ = grad_gate("two-rank training step", grads[0], ref)
-    apart = max(float((grads[0][k] - other[k]).abs().max())
-                / max(float(other[k].abs().max()), 1e-30) for k in other)
     for k in grads[0]:
         if not torch.equal(grads[0][k], grads[1][k]):
             raise AssertionError(f"two ranks: {k}'s gradient differs "
                                  f"between the ranks")
-    return (f"{RANKS} ranks (gloo, CUDA tensors, both on one {card}; two "
-            f"ranks sharing one card, not a scaling figure): {W}x{H} terrain "
-            f"frame bit-equal to the single process's on both ranks, "
-            f"{BOUNCES + 1} B1 launches on each rank's shard; frame "
-            + ", ".join(f"rank {x['rank']} {x['frame_s']:.4f} s (warm-up "
-                        f"{x['warmup_frame_s']:.3f})" for x in lines)
-            + f"; training step (grad_chunks={CHUNKS}, edge_samples="
+    return (f"{RANKS} ranks (gloo, CUDA tensors, both on one {card}): "
+            f"{W}x{H} terrain frame bit-equal to the single process's on "
+            f"both ranks, {BOUNCES + 1} B1 launches on each rank's shard; "
+            f"training step (grad_chunks={CHUNKS}, edge_samples="
             f"{EDGE_SAMPLES}, topology) gradient vs the single process's "
             f"over the same {RANKS * CHUNKS} slabs (grad_chunks="
-            f"{RANKS * CHUNKS}, {ref_s:.4f} s): worst {worst:.3g} of max "
-            f"|g| ({leaf}; gate {GRAD_PARITY}), equal on both ranks (vs "
-            f"grad_chunks={CHUNKS}, whose slabs hold other share tiles: "
-            f"{apart:.3g}, ungated); "
-            f"loss {lines[0]['loss']:.6g} vs {ref_loss:.6g}; step "
-            + ", ".join(f"rank {x['rank']} {x['step_s']:.4f} s (warm-up "
-                        f"{x['warmup_step_s']:.3f})" for x in lines)
-            + "; gather of a rank's 1080p shard "
-            + ", ".join(f"{x['gather_ms']:.3f}" for x in lines)
-            + f" ms, all-reduce of one chunk's {lines[0]['reduce_floats']} "
-            f"floats " + ", ".join(f"{x['reduce_ms']:.3f}" for x in lines)
-            + f" ms; gloo on CUDA tensors {lines[0]['gloo_on_cuda']} | {card}")
+            f"{RANKS * CHUNKS}): worst {worst:.3g} of max |g| ({leaf}; gate "
+            f"{GRAD_PARITY}), equal on both ranks; loss "
+            f"{lines[0]['loss']:.6g} vs {ref_loss:.6g} | {card}")
 
 
 def run_cli(*argvs):
-    """``python -m ray_tracer_tpu_torch argv`` for each argv in turn →
-    (the last one's stdout, seconds of each); raises where one fails."""
-    out, secs = None, []
+    """``python -m ray_tracer_tpu_torch argv`` for each argv in turn → the
+    last one's stdout; raises where one fails."""
+    out = None
     for argv in argvs:
-        t0 = time.perf_counter()
         p = subprocess.run([sys.executable, "-m", "ray_tracer_tpu_torch"]
                            + argv, capture_output=True, text=True,
                            timeout=SUBPROCESS_TIMEOUT)
-        secs.append(time.perf_counter() - t0)
         if p.returncode != 0:
             raise AssertionError(f"command line {argv[:3]} failed "
                                  f"({p.returncode}):\n{p.stdout[-3000:]}\n"
                                  f"{p.stderr[-3000:]}")
         out = p.stdout
-    return out, secs
+    return out
 
 
 def cli_image(argv):
@@ -4047,26 +3610,22 @@ def cli_path(paths, card):
     with open(out["depth.png"], "rb") as f:
         if decode_png(f.read()).shape != (H, W, 3):
             raise AssertionError("command line depth AOV has the wrong shape")
-    bench = json.loads(texts["benchmark"][0].strip().splitlines()[-1])
-    inv = json.loads(texts["invert"][0].strip().splitlines()[-1])
-    info = json.loads(texts["info"][0])
+    bench = json.loads(texts["benchmark"].strip().splitlines()[-1])
+    inv = json.loads(texts["invert"].strip().splitlines()[-1])
+    info = json.loads(texts["info"])
     name = torch.cuda.get_device_name(0)
     if name not in info["devices"] or not info["default_device"].startswith(
             "cuda"):
         raise AssertionError(f"command line info: {info}")
     if "recovered" not in inv or not math.isfinite(inv["final_loss"]):
         raise AssertionError(f"command line invert: {inv}")
-    secs = ", ".join(f"{k} {' + '.join(f'{x:.1f}' for x in t[1])}"
-                     for k, t in texts.items())
     return (f"room, terrain190k.obj, torus.glb {W}x{H} {FRAMES} frames: PNGs "
             f"equal to the images of their flags; --checkpoint {half} + "
             f"--resume {half} equal to the uninterrupted {FRAMES}; depth AOV "
-            f"PNG {W}x{H}; benchmark {bench['value'] / 1e6:.3f} M segments/s "
-            f"({bench['seconds']:.4f} s, min of 2); invert 20 steps "
-            f"recovered={inv['recovered']} (max albedo error "
-            f"{inv['max_albedo_error']:.4f}, {inv['seconds']} s); info names "
-            f"{name}; seconds of each command (all started together): "
-            f"{secs} | {card}")
+            f"PNG {W}x{H}; benchmark's result line at {bench['resolution']} "
+            f"on {bench['device']}; invert "
+            f"20 steps recovered={inv['recovered']} (max albedo error "
+            f"{inv['max_albedo_error']:.4f}); info names {name} | {card}")
 
 
 def viewer_path(device, card):
@@ -4120,10 +3679,8 @@ def viewer_path(device, card):
         figure = "matplotlib is not installed here: the figure not run"
     return (f"{frames} frames ({W}x{H}, then {VIEWER_RESIZE[0]}x"
             f"{VIEWER_RESIZE[1]}) after keys {''.join(VIEWER_KEYS)}: "
-            f"{core.clock.mean_ms:.1f} ms/frame ({core.clock.fps:.2f} fps, "
-            f"n={core.clock.count}); packings per frame {packs}; one sRGB "
-            f"encode a frame, each equal to the numpy encode; {figure} | "
-            f"{card}"), frames
+            f"packings per frame {packs}; one sRGB encode a frame, each "
+            f"equal to the numpy encode; {figure} | {card}"), frames
 
 
 def pose_grads(scene, cam, params, origin, target):
@@ -4152,7 +3709,7 @@ def recover_pose(scene, cam, params, steps=POSE_STEPS, offset=POSE_OFFSET):
     """The reference test's camera calibration: Adam on the origin under
     optax's cosine_decay_schedule(0.08, steps, alpha=0.02), each step
     against the target re-rendered at its own frame index → (start error,
-    final error, seconds per step)."""
+    final error)."""
     true = torch.tensor(cam.origin, dtype=torch.float32, device=scene.device)
     origin = (true + torch.tensor(offset, device=scene.device)
               ).requires_grad_(True)
@@ -4164,8 +3721,6 @@ def recover_pose(scene, cam, params, steps=POSE_STEPS, offset=POSE_OFFSET):
                                        cam.aspect, cam.focus_dist)
         return render_frame(scene, basis, params, frame)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for i in range(steps):
         with torch.no_grad():
             target = render_at(true, i)
@@ -4176,7 +3731,7 @@ def recover_pose(scene, cam, params, steps=POSE_STEPS, offset=POSE_OFFSET):
         origin.grad = g
         opt.step()
     err = float(torch.linalg.vector_norm(origin.detach() - true))
-    return start_err, err, (time.perf_counter() - t0) / steps
+    return start_err, err
 
 
 def pose_path(device, card):
@@ -4205,7 +3760,7 @@ def pose_path(device, card):
     small, small_cam = rt.builtin_scene("metal", aspect=1.0, device=device)
     rparams = rt.RenderParams(width=POSE_SIZE, height=POSE_SIZE, bounces=1,
                               skybox=True)
-    start_err, err, step_s = recover_pose(small, small_cam, rparams)
+    start_err, err = recover_pose(small, small_cam, rparams)
     if not err < POSE_BAR * start_err:
         raise AssertionError(f"pose recovery: error {err} from {start_err} "
                              f"(bar {POSE_BAR} x the start)")
@@ -4217,7 +3772,7 @@ def pose_path(device, card):
             f"launches {want['closest_hit']} B1 + {want['scatter_rows']} B2; "
             f"recovery ({POSE_STEPS} steps at {POSE_SIZE}x{POSE_SIZE} b1): "
             f"error {start_err:.4f} -> {err:.4f} ({err / start_err:.3f} of "
-            f"the start, bar {POSE_BAR}), {step_s * 1e3:.2f} ms/step | {card}")
+            f"the start, bar {POSE_BAR}) | {card}")
 
 
 def metrics_path(terrain, card):
@@ -4238,8 +3793,8 @@ def metrics_path(terrain, card):
     if stage_ms < event_ms:
         raise AssertionError(f"StageTimer read {stage_ms} ms for a render "
                              f"of {event_ms} ms on the card")
-    return (f"StageTimer stage {stage_ms:.3f} ms >= CUDA events "
-            f"{event_ms:.3f} ms ({FRAMES} frames {W}x{H}) | {card}")
+    return (f"a StageTimer stage reads no less than the CUDA events round "
+            f"the same {FRAMES}-frame {W}x{H} render | {card}")
 
 
 def phase12_parallel_and_shell(device, scenes, paths, card):
@@ -4322,16 +3877,12 @@ def rigid_run(label, scene, basis, ext, cfg):
                     hit_record_vjp=0 if tex else steps * seg)
     start = (np.float32(0.12 * ext)
              * np.array(cfg["start_dir"], np.float32)).astype(np.float32)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     packs = ch.scene_planes.packs
-    t0 = time.perf_counter()
     off, alb, losses = invert_teapot.run_recovery(
         scene, ext, params, steps, start,
         np.array(cfg["start_albedo"], np.float32), basis, log=False)
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
     counts = read_counts()
     packed = ch.scene_planes.packs - packs
     if counts != want:
@@ -4353,9 +3904,7 @@ def rigid_run(label, scene, basis, ext, cfg):
             f"{cfg['start_albedo']}: offset error {off_err:.5f} of the "
             f"extent, albedo error {alb_err:.4f} ({alb.round(4).tolist()}), "
             f"loss {losses[0]:.6g} -> {losses[-1]:.6g} (every "
-            f"{max(1, steps // 10)}th: {curve}); {secs:.1f} s, "
-            f"{secs / steps:.4f} s/step, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+            f"{max(1, steps // 10)}th: {curve}); "
             f"{packed} packings (1 + 8 a step), launches {counts} "
             f"({(counts[key] - 1) // steps} {key} and "
             f"{counts['scatter_rows'] // steps} scatter-add a step)")
@@ -4448,10 +3997,6 @@ def phase13_rigid_recovery(device, terrain, paths, card):
 
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also measure where a main-path frame's time goes")
-    ap.add_argument("--out", metavar="DIR",
-                    help="write the main-path image and profiler tables here")
     # phase 12 runs this script as one rank of its two-rank group
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
@@ -4462,8 +4007,6 @@ def main(argv):
         return
     t_start = time.perf_counter()
     card = phase0_device()
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
     device = torch.device("cuda", 0)
     secs = {}
 
@@ -4480,10 +4023,8 @@ def main(argv):
     terrain_nee = terrain_scene(device, with_lights=True)
     terrain_tex = terrain_scene(device, textured=True)
     terrain_nee_tex = terrain_scene(device, with_lights=True, textured=True)
-    t0 = time.perf_counter()
     large = terrain_scene(device, n=LARGE_N)
     large_nee = terrain_scene(device, n=LARGE_N, with_lights=True)
-    build_s = time.perf_counter() - t0
     large_tex = terrain_scene(device, n=LARGE_N, textured=True)
     huge = terrain_scene(device, n=HUGE_N)
     # the kernel phases keep one cache of planes across their calls, as
@@ -4507,38 +4048,33 @@ def main(argv):
     timing["srgb_encode"] = run("2g", phase2g_srgb_vs_numpy, device)
     torch.cuda.empty_cache()
     counts = {}
-    main_counts, terrain_rate = run(
-        "3", phase3_main_path, device, terrain, card, args.profile, args.out)
+    main_counts = run("3", phase3_main_path, device, terrain, card)
     counts["closest_hit"] = main_counts["closest_hit"]
     counts["hit_record"] = main_counts["hit_record"]
     run("4", phase4_parity, device, terrain)
     run("4b", phase4b_nee_parity, device, terrain_nee)
-    train_counts, phase5_s = run("5", phase5_training, device, terrain,
-                                 card, args.profile, args.out)
+    train_counts = run("5", phase5_training, device, terrain, card)
     counts["scatter_rows"] = train_counts["scatter_rows"]
     counts["hit_record_vjp"] = train_counts["hit_record_vjp"]
     torch.cuda.empty_cache()
     run("6", phase6_grad_parity, device, terrain)
     run("6b", phase6b_nee_grad_parity, device, terrain_nee)
     torch.cuda.empty_cache()
-    counts["any_hit"] = run("7", phase7_nee_path, device, terrain_nee, card,
-                            args.profile, args.out)
+    counts["any_hit"] = run("7", phase7_nee_path, device, terrain_nee, card)
     torch.cuda.empty_cache()
     counts["blocked_hit"] = run("8", phase8_large_scene, device, large,
-                                large_nee, build_s, card, args.profile,
-                                args.out)
+                                large_nee, card)
     del large_nee
     torch.cuda.empty_cache()
     counts.update(run("9", phase9_textured, device, terrain_tex,
-                      terrain_nee_tex, large_tex, terrain_rate, card,
-                      args.profile, args.out))
+                      terrain_nee_tex, large_tex, card))
     del large_tex, terrain_nee_tex
     torch.cuda.empty_cache()
     run("10", phase10_image_extras, device, terrain, terrain_nee,
-        terrain_tex, large, terrain_rate, card)
+        terrain_tex, large, card)
     del terrain_tex
     torch.cuda.empty_cache()
-    paths = run("11", phase11_recovery, device, terrain, card, phase5_s)
+    paths = run("11", phase11_recovery, device, terrain, card)
     torch.cuda.empty_cache()
     counts["srgb_encode"] = run(
         "12", phase12_parallel_and_shell, device,

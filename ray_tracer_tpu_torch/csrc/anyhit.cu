@@ -167,7 +167,7 @@ int rtt_anyhit(const float* o, const float* d, const unsigned char* alive,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* rtt_anyhit_error_string(int code) {
+const char* rtt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -284,7 +284,7 @@ int rtt_blocked_hit(const float* o, const float* d,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* rtt_blocked_hit_error_string(int code) {
+const char* rtt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

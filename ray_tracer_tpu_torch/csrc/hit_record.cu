@@ -399,7 +399,7 @@ int rtt_hit_record_vjp(const float* rows, const float* o, const float* d,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* rtt_hit_record_error_string(int code) {
+const char* rtt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -161,7 +161,7 @@ int rtt_scatter_rows(const int* ids, const float* g, int R, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* rtt_scatter_error_string(int code) {
+const char* rtt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

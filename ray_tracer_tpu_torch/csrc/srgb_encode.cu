@@ -90,7 +90,7 @@ int rtt_srgb_encode(const float* x, unsigned char* out, int rows, int row_len,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* rtt_srgb_encode_error_string(int code) {
+const char* rtt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -28,11 +28,11 @@ agree on every lane.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ..scene import Scene
+from ..utils import build
 from . import intersect
 from .closest_hit import (CLUSTER, _check_inputs, _check_shared,
                           _cluster_aabbs, _cols, _mt_pairs, _pack_spheres,
@@ -41,6 +41,12 @@ from .closest_hit import (CLUSTER, _check_inputs, _check_shared,
 # end of the shadow segment, in units of |d|: stops short of the light's
 # own surface (the reference's occluded)
 SHADOW_T_MAX = 1.0 - 1e-3
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "rtt_anyhit": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _F, _F, _P,
+                   _P],
+    "rtt_anyhit_shared_bytes": [_I, _I],
+    "rtt_anyhit_blocks_per_sm": [_I, _I]}
 
 
 def _slab_pairs(lo, hi, o, invd, t_min):
@@ -94,23 +100,6 @@ def anyhit_reference(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX,
             else torch.zeros((0,), dtype=torch.bool, device=o.device))
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernel library (built at first use), with its C signatures."""
-    from ..utils import build
-    lib = build.load("anyhit")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtt_anyhit.argtypes = [p, p, p, i, p, i, p, p, i, p, i, f, f, p, p]
-    lib.rtt_anyhit.restype = i
-    lib.rtt_anyhit_shared_bytes.argtypes = [i, i]
-    lib.rtt_anyhit_shared_bytes.restype = i
-    lib.rtt_anyhit_blocks_per_sm.argtypes = [i, i]
-    lib.rtt_anyhit_blocks_per_sm.restype = i
-    lib.rtt_anyhit_error_string.argtypes = [i]
-    lib.rtt_anyhit_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
     """True where some primitive is hit with t in ``[t_min, t_max)`` along
     o + t·d → (R,) bool; dead lanes False.
@@ -130,21 +119,17 @@ def anyhit(scene: Scene, o, d, t_min=1e-4, t_max=SHADOW_T_MAX, alive=None):
     out = torch.empty((R,), dtype=torch.bool, device=dev)
     if R == 0:
         return out
-    lib = _library()
+    lib = build.library("anyhit", SIGNATURES)
     planes = scene_planes(scene)   # packed once per call (closest_hit.py)
     n_clusters, n_supers = planes.n_clusters, planes.sup.shape[0]
     _check_shared("any-hit", lib.rtt_anyhit_shared_bytes(n_clusters, n_supers),
                   n_clusters)
     (o, d, alive), ray_ptrs = _ray_args(o, d, alive)
-    with torch.cuda.device(dev):
-        err = lib.rtt_anyhit(
-            *ray_ptrs, R, planes.sph.data_ptr(), scene.num_spheres,
-            planes.geo.data_ptr(), planes.clu.data_ptr(), n_clusters,
-            planes.sup.data_ptr(), n_supers, float(t_min), float(t_max),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("any-hit kernel launch failed: "
-                           + lib.rtt_anyhit_error_string(err).decode())
+    build.launch(lib, "rtt_anyhit", "any-hit", dev, *ray_ptrs, R,
+                 planes.sph.data_ptr(), scene.num_spheres,
+                 planes.geo.data_ptr(), planes.clu.data_ptr(), n_clusters,
+                 planes.sup.data_ptr(), n_supers, float(t_min), float(t_max),
+                 out.data_ptr())
     anyhit.launches += 1
     return out
 

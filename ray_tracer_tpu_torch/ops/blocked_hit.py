@@ -25,11 +25,11 @@ triangles. The packed planes come from ``closest_hit.scene_planes``.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ..scene import Scene
+from ..utils import build
 from .closest_hit import (CLUSTER, REFERENCE_CHUNK, _check_inputs, _cols,
                           _copy_map_tensor, _hit_outputs, _mt_pairs,
                           _pack_spheres, _pack_tris, _plain_result, _ray_args,
@@ -42,6 +42,12 @@ BLOCK = 8192       # triangles per block (the reference's KConfig.tri_block)
 # stream. The port keeps the same scenes on the same kind of kernel.
 VMEM_TRI_BUDGET = 12 << 20
 LANE_ROW_BYTES = 128 * 4
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "rtt_blocked_hit": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+                        _I, _I, _P, ctypes.c_float, _I, _I, _P, _P, _P, _P],
+    "rtt_blocked_hit_shared_bytes": [],
+    "rtt_blocked_hit_blocks_per_sm": [_I, _I]}
 
 
 def uses_blocked(scene: Scene) -> bool:
@@ -107,24 +113,6 @@ def nearest_hit_blocked_reference(scene: Scene, o, d, t_min=1e-4, alive=None,
     return _plain_result(scene, o, ts, ids, want_attrs)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernel library (built at first use), with its C signatures."""
-    from ..utils import build
-    lib = build.load("blocked_hit")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rtt_blocked_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, i, p, p, i,
-                                    i, p, ctypes.c_float, i, i, p, p, p, p]
-    lib.rtt_blocked_hit.restype = i
-    lib.rtt_blocked_hit_shared_bytes.argtypes = []
-    lib.rtt_blocked_hit_shared_bytes.restype = i
-    lib.rtt_blocked_hit_blocks_per_sm.argtypes = [i, i]
-    lib.rtt_blocked_hit_blocks_per_sm.restype = i
-    lib.rtt_blocked_hit_error_string.argtypes = [i]
-    lib.rtt_blocked_hit_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
                         want_attrs=True, block=BLOCK):
     """Closest hit of each ray through the block hierarchy → (t (R,),
@@ -148,24 +136,19 @@ def nearest_hit_blocked(scene: Scene, o, d, t_min=1e-4, alive=None,
     t_out, id_out, rows = _hit_outputs(scene, R, dev, want_attrs)
     if R == 0:
         return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
-    lib = _library()
+    lib = build.library("blocked_hit", SIGNATURES)
     planes = scene_planes(scene)
     textured = want_attrs and scene.num_textures > 0
     (o, d, alive), ray_ptrs = _ray_args(o, d, alive)
-    with torch.cuda.device(dev):
-        err = lib.rtt_blocked_hit(
-            *ray_ptrs, R, planes.sph.data_ptr(), scene.padded_spheres,
-            scene.num_spheres, planes.geo.data_ptr(),
-            planes.tri.data_ptr(), planes.clu.data_ptr(), n_clusters,
-            planes.sup.data_ptr(),
-            planes.block_boxes(block_clusters).data_ptr(), n_blocks,
-            block_clusters, _copy_map_tensor(dev, textured).data_ptr(),
-            float(t_min), int(want_attrs), int(textured), t_out.data_ptr(),
-            id_out.data_ptr(), rows.data_ptr() if want_attrs else None,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("streaming closest-hit kernel launch failed: "
-                           + lib.rtt_blocked_hit_error_string(err).decode())
+    build.launch(
+        lib, "rtt_blocked_hit", "streaming closest-hit", dev, *ray_ptrs, R,
+        planes.sph.data_ptr(), scene.padded_spheres, scene.num_spheres,
+        planes.geo.data_ptr(), planes.tri.data_ptr(), planes.clu.data_ptr(),
+        n_clusters, planes.sup.data_ptr(),
+        planes.block_boxes(block_clusters).data_ptr(), n_blocks,
+        block_clusters, _copy_map_tensor(dev, textured).data_ptr(),
+        float(t_min), int(want_attrs), int(textured), t_out.data_ptr(),
+        id_out.data_ptr(), rows.data_ptr() if want_attrs else None)
     if textured:
         nearest_hit_blocked.tex_launches += 1
     else:

@@ -43,6 +43,7 @@ import functools
 import torch
 
 from ..scene import Scene
+from ..utils import build
 from ..utils.metrics import span
 from .intersect import _pack_attrs, attr_width, cross, merged_width
 
@@ -53,6 +54,12 @@ TRI_DET_EPS = 1e-6
 # ray chunk of the plain version: keeps its (rays, primitives) temporaries
 # near 256 MB each on a 16k-triangle scene
 REFERENCE_CHUNK = 4096
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "rtt_closest_hit": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I,
+                        _P, ctypes.c_float, _I, _I, _P, _P, _P, _P],
+    "rtt_closest_hit_shared_bytes": [_I, _I],
+    "rtt_closest_hit_blocks_per_sm": [_I, _I, _I, _I]}
 
 
 # ---------------------------------------------------------------------------
@@ -375,24 +382,6 @@ def _plain_result(scene: Scene, o, ts, ids, want_attrs):
 # Wrapper
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernel library (built at first use), with its C signatures."""
-    from ..utils import build
-    lib = build.load("closest_hit")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rtt_closest_hit.argtypes = [p, p, p, i, p, i, i, p, p, p, i, p, i,
-                                    p, ctypes.c_float, i, i, p, p, p, p]
-    lib.rtt_closest_hit.restype = i
-    lib.rtt_closest_hit_shared_bytes.argtypes = [i, i]
-    lib.rtt_closest_hit_shared_bytes.restype = i
-    lib.rtt_closest_hit_blocks_per_sm.argtypes = [i, i, i, i]
-    lib.rtt_closest_hit_blocks_per_sm.restype = i
-    lib.rtt_error_string.argtypes = [i]
-    lib.rtt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check_inputs(scene: Scene, o, d, alive):
     dev = o.device
     for name, x in (("o", o), ("d", d)):
@@ -478,7 +467,7 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
     t_out, id_out, rows = _hit_outputs(scene, R, dev, want_attrs)
     if R == 0:
         return (t_out, id_out, rows) if want_attrs else (t_out, id_out)
-    lib = _library()
+    lib = build.library("closest_hit", SIGNATURES)
     planes = scene_planes(scene)
     textured = want_attrs and scene.num_textures > 0
     n_clusters, n_supers = planes.n_clusters, planes.sup.shape[0]
@@ -486,19 +475,14 @@ def nearest_hit_attrs(scene: Scene, o, d, t_min=1e-4, alive=None,
                   lib.rtt_closest_hit_shared_bytes(n_clusters, n_supers),
                   n_clusters)
     (o, d, alive), ray_ptrs = _ray_args(o, d, alive)
-    with torch.cuda.device(dev):
-        err = lib.rtt_closest_hit(
-            *ray_ptrs, R, planes.sph.data_ptr(), scene.padded_spheres,
-            scene.num_spheres, planes.geo.data_ptr(),
-            planes.tri.data_ptr(), planes.clu.data_ptr(), n_clusters,
-            planes.sup.data_ptr(), n_supers,
-            _copy_map_tensor(dev, textured).data_ptr(), float(t_min),
-            int(want_attrs), int(textured), t_out.data_ptr(),
-            id_out.data_ptr(), rows.data_ptr() if want_attrs else None,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("closest-hit kernel launch failed: "
-                           + lib.rtt_error_string(err).decode())
+    build.launch(
+        lib, "rtt_closest_hit", "closest-hit", dev, *ray_ptrs, R,
+        planes.sph.data_ptr(), scene.padded_spheres, scene.num_spheres,
+        planes.geo.data_ptr(), planes.tri.data_ptr(), planes.clu.data_ptr(),
+        n_clusters, planes.sup.data_ptr(), n_supers,
+        _copy_map_tensor(dev, textured).data_ptr(), float(t_min),
+        int(want_attrs), int(textured), t_out.data_ptr(), id_out.data_ptr(),
+        rows.data_ptr() if want_attrs else None)
     if textured:
         nearest_hit_attrs.tex_launches += 1
     else:

@@ -24,27 +24,16 @@ multiply-adds.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..utils import build
+
 COLS = 26  # untextured merged-table row (intersect.merged_width(False))
 _INT32_LIMIT = 2 ** 31
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernel library (built at first use), with its C signatures."""
-    from ..utils import build
-    lib = build.load("hit_record")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rtt_hit_record.argtypes = [p] * 5 + [i, i] + [p] * 8 + [p]
-    lib.rtt_hit_record.restype = i
-    lib.rtt_hit_record_vjp.argtypes = [p] * 5 + [i, i] + [p] * 10 + [p]
-    lib.rtt_hit_record_vjp.restype = i
-    lib.rtt_hit_record_error_string.argtypes = [i]
-    lib.rtt_hit_record_error_string.restype = ctypes.c_char_p
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"rtt_hit_record": [_P] * 5 + [_I, _I] + [_P] * 8 + [_P],
+              "rtt_hit_record_vjp": [_P] * 5 + [_I, _I] + [_P] * 10 + [_P]}
 
 
 def takes(rows) -> bool:
@@ -78,12 +67,6 @@ def _inputs(rows, o, d, prim_id, miss):
             R)
 
 
-def _check(err: int, lib, what: str):
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.rtt_hit_record_error_string(err).decode())
-
-
 def hit_record(rows, o, d, prim_id, miss, padded_spheres: int):
     """The hit record of each lane → (t (R,), point (R, 3), normal (R, 3),
     albedo (R, 3), emission (R, 3), emission_strength (R,), smoothness
@@ -100,14 +83,10 @@ def hit_record(rows, o, d, prim_id, miss, padded_spheres: int):
            empty(R), empty(R), empty(R, dtype=torch.bool))
     if R == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.rtt_hit_record(
-            rows.data_ptr(), o.data_ptr(), d.data_ptr(), prim_id.data_ptr(),
-            miss.data_ptr(), R, int(padded_spheres),
-            *(x.data_ptr() for x in out),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check(err, lib, "hit-record")
+    build.launch(build.library("hit_record", SIGNATURES), "rtt_hit_record",
+                 "hit-record", dev, rows.data_ptr(), o.data_ptr(),
+                 d.data_ptr(), prim_id.data_ptr(), miss.data_ptr(), R,
+                 int(padded_spheres), *(x.data_ptr() for x in out))
     hit_record.launches += 1
     return out
 
@@ -129,18 +108,15 @@ def hit_record_vjp(rows, o, d, prim_id, miss, padded_spheres: int,
                 if w else None for w in (want_o, want_d))
     if R == 0:
         return g_rows, g_o, g_d
-    lib = _library()
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    with torch.cuda.device(dev):
-        err = lib.rtt_hit_record_vjp(
-            rows.data_ptr(), o.data_ptr(), d.data_ptr(), prim_id.data_ptr(),
-            miss.data_ptr(), R, int(padded_spheres), *map(ptr, cots),
-            ptr(g_rows), ptr(g_o), ptr(g_d),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check(err, lib, "hit-record VJP")
+    build.launch(build.library("hit_record", SIGNATURES),
+                 "rtt_hit_record_vjp", "hit-record VJP", dev, rows.data_ptr(),
+                 o.data_ptr(), d.data_ptr(), prim_id.data_ptr(),
+                 miss.data_ptr(), R, int(padded_spheres), *map(ptr, cots),
+                 ptr(g_rows), ptr(g_o), ptr(g_d))
     hit_record_vjp.launches += 1
     return g_rows, g_o, g_d
 

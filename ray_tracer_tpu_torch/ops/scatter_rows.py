@@ -32,11 +32,14 @@ kernel adds straight into device memory at any table size.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..utils import build
+
 _INT32_LIMIT = 2 ** 31
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {"rtt_scatter_rows": [_P, _P, _I, _I, _LL, _LL, _I, _P, _P, _P]}
 
 
 def scatter_rows_reference(ids, g_rows, n_rows: int):
@@ -51,19 +54,6 @@ def scatter_rows_reference(ids, g_rows, n_rows: int):
 def scatter_rows_soa_reference(ids, g_soa, n_rows: int):
     """Plain version, SoA: ``g_soa`` (W, R)."""
     return scatter_rows_reference(ids, g_soa.T, n_rows)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernel library (built at first use), with its C signatures."""
-    from ..utils import build
-    lib = build.load("scatter_rows")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rtt_scatter_rows.argtypes = [p, p, i, i, ll, ll, i, p, p, p]
-    lib.rtt_scatter_rows.restype = i
-    lib.rtt_scatter_error_string.argtypes = [i]
-    lib.rtt_scatter_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _check_inputs(ids, g, n_rows: int, R: int, W: int):
@@ -95,16 +85,11 @@ def _launch(ids, g, n_rows: int, R: int, W: int, col_stride: int,
     out = torch.empty((n_rows, W), dtype=torch.float32, device=dev)
     if R == 0:
         return out.zero_()
-    lib = _library()
     wide = torch.empty((n_rows, W), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.rtt_scatter_rows(
-            ids.data_ptr(), g.data_ptr(), R, W, col_stride, ray_stride,
-            n_rows, wide.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("scatter-add kernel launch failed: "
-                           + lib.rtt_scatter_error_string(err).decode())
+    build.launch(build.library("scatter_rows", SIGNATURES), "rtt_scatter_rows",
+                 "scatter-add", dev, ids.data_ptr(), g.data_ptr(), R, W,
+                 col_stride, ray_stride, n_rows, wide.data_ptr(),
+                 out.data_ptr())
     return out
 
 

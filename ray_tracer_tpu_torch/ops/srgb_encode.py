@@ -24,27 +24,14 @@ kernel's 8 us and 0.03 ms (``chip_smoke.py`` phase 2g times both).
 from __future__ import annotations
 
 import ctypes
-import functools
 
-import numpy as np
 import torch
 
+from ..utils import build
+
 _INT32_LIMIT = 2 ** 31 - 4   # the kernel's int indices run past n by 3
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> tuple[ctypes.CDLL, np.ndarray]:
-    """The kernel library (built at first use), with its C signatures, and
-    the thresholds it searches."""
-    from ..io.image import srgb_thresholds   # io.image imports this module
-    from ..utils import build
-    lib = build.load("srgb_encode")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rtt_srgb_encode.argtypes = [p, p, i, i, i, p, p]
-    lib.rtt_srgb_encode.restype = i
-    lib.rtt_srgb_encode_error_string.argtypes = [i]
-    lib.rtt_srgb_encode_error_string.restype = ctypes.c_char_p
-    return lib, srgb_thresholds()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"rtt_srgb_encode": [_P, _P, _I, _I, _I, _P, _P]}
 
 
 def srgb_encode(img: torch.Tensor, flip: bool) -> torch.Tensor:
@@ -65,15 +52,11 @@ def srgb_encode(img: torch.Tensor, flip: bool) -> torch.Tensor:
     rows = img.shape[0]
     if out.numel() == 0:
         return out
-    lib, table = _library()
-    with torch.cuda.device(img.device):
-        err = lib.rtt_srgb_encode(
-            img.data_ptr(), out.data_ptr(), rows, img.numel() // rows,
-            int(bool(flip)), table.ctypes.data,
-            torch.cuda.current_stream(img.device).cuda_stream)
-    if err:
-        raise RuntimeError("sRGB encode kernel launch failed: "
-                           + lib.rtt_srgb_encode_error_string(err).decode())
+    from ..io.image import srgb_thresholds   # io.image imports this module
+    build.launch(build.library("srgb_encode", SIGNATURES), "rtt_srgb_encode",
+                 "sRGB encode", img.device, img.data_ptr(), out.data_ptr(),
+                 rows, img.numel() // rows, int(bool(flip)),
+                 srgb_thresholds().ctypes.data)
     srgb_encode.launches += 1
     return out
 

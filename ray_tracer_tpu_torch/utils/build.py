@@ -6,6 +6,9 @@ library under ``build/ray_tracer_tpu_torch/`` at the repository root,
 keyed by a hash of the source, of every header it includes from
 ``csrc/`` (``#include "..."``, followed recursively) and of the flags, and
 loaded with ``ctypes``.
+``library`` types a library's entry points and ``launch`` calls one on
+the current stream: the one convention by which the ops modules call
+their kernels.
 The build uses nothing but the repository's sources and the CUDA toolkit.
 ``nvcc`` is taken from ``$CUDA_HOME/bin``, then ``PATH``, then
 ``/usr/local/cuda/bin``.
@@ -30,6 +33,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -125,3 +130,36 @@ def build_host(source: Path) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library ``name``."""
     return ctypes.CDLL(str(build(name)))
+
+
+_TYPED: dict[str, ctypes.CDLL] = {}   # name -> the library, typed
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The kernel library ``name`` (``load``: built at first use) with the
+    C signatures ``{symbol: argtypes}`` set, each symbol returning an int
+    (an error code, a size or a count), and ``rtt_error_string``, which
+    every kernel library exports, bound. Typed once per name."""
+    lib = _TYPED.get(name)
+    if lib is None:
+        lib = load(name)
+        for symbol, argtypes in signatures.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.rtt_error_string.argtypes = [ctypes.c_int]
+        lib.rtt_error_string.restype = ctypes.c_char_p
+        _TYPED[name] = lib
+    return lib
+
+
+def launch(lib: ctypes.CDLL, symbol: str, what: str, device, *args):
+    """Call the kernel entry ``symbol`` of ``lib`` (from ``library``) with
+    ``args`` and, last, the current stream of the CUDA ``device``, with
+    that device current. Raises ``RuntimeError("<what> kernel launch
+    failed: <the CUDA error string>")`` where it returns an error code."""
+    with torch.cuda.device(device):
+        err = getattr(lib, symbol)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.rtt_error_string(err).decode())

@@ -280,6 +280,31 @@ def test_large_scene_occlusion_takes_the_streaming_version(large,
     assert 0.05 < got[alive].mean() < 0.95
 
 
+@pytest.mark.parametrize("streaming", [False, True],
+                         ids=["resident", "streaming"])
+def test_queries_look_up_the_kernel_wrappers_at_call_time(streaming,
+                                                          monkeypatch):
+    """The benchmark counts live lanes by replacing the wrappers as module
+    attributes (``rtbench/core.live_lanes``): ``fused_intersect`` and
+    ``occluded_kernels`` must reach each through its module at call time,
+    on both sides of the crossover (forced here on a small mesh)."""
+    _, ts = _mesh(300)
+    o, d = (t_(x) for x in _random_rays(64, seed=24))
+    alive = torch.ones(64, dtype=torch.bool)
+    calls = []
+    for module, name in ((tch, "nearest_hit_attrs"),
+                         (tbh, "nearest_hit_blocked"), (tah, "anyhit")):
+        def counted(*a, _name=name, _true=getattr(module, name), **kw):
+            calls.append(_name)
+            return _true(*a, **kw)
+        monkeypatch.setattr(module, name, counted)
+    monkeypatch.setattr(tbh, "uses_blocked", lambda scene: streaming)
+    tint.fused_intersect(ts, o, d, 1e-4, alive)
+    tint.occluded_kernels(ts, o, d, 1e-4, alive)
+    assert calls == (["nearest_hit_blocked"] * 2 if streaming
+                     else ["nearest_hit_attrs", "anyhit"])
+
+
 def test_wrapper_on_cpu_takes_plain_version_without_launching():
     _, ts = _mesh(300)
     o, d = (t_(x) for x in _random_rays(64, seed=15))

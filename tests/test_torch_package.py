@@ -1,10 +1,13 @@
 """The port's package boundary: no JAX, explicit backends, entry points
 on the card, and the kernels' build."""
 
+import contextlib
+import ctypes
 import dataclasses
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -14,6 +17,8 @@ import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.io import image as j_image
 from ray_tracer_tpu_torch.io import image as t_image
+from ray_tracer_tpu_torch.ops import (anyhit, blocked_hit, closest_hit,
+                                      hit_record, scatter_rows, srgb_encode)
 from ray_tracer_tpu_torch.ops import intersect as tint
 from ray_tracer_tpu_torch.utils import build
 
@@ -157,6 +162,65 @@ def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
     (tmp_path / "b.cuh").write_text("// two\n")
     assert build.library_path("k") != before[0]
     assert build.library_path("lone") == before[1]
+
+
+class _FakeSymbol:
+    """A kernel library's entry point: records its calls, returns
+    ``result``; ctypes' ``argtypes`` and ``restype`` are plain fields."""
+
+    def __init__(self, result):
+        self.result, self.calls = result, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.result
+
+
+class _FakeLibrary:
+    """A kernel library with every symbol: each returns 0 until told
+    otherwise, and ``rtt_error_string`` returns CUDA's text for code 700."""
+
+    def __getattr__(self, symbol):
+        if symbol.startswith("__"):
+            raise AttributeError(symbol)
+        fn = _FakeSymbol(b"an illegal memory access was encountered"
+                         if symbol == "rtt_error_string" else 0)
+        setattr(self, symbol, fn)
+        return fn
+
+
+@pytest.mark.parametrize("module", [closest_hit, blocked_hit, anyhit,
+                                    scatter_rows, hit_record, srgb_encode],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_kernel_library_binding(module, monkeypatch):
+    """``build.library`` types each symbol of an ops module's table and
+    binds ``rtt_error_string``, once per library; ``build.launch`` calls
+    an entry with the current stream last and turns an error code into a
+    RuntimeError naming the kernel and CUDA's error string."""
+    name = module.__name__.rsplit(".", 1)[1]   # the library is the module's
+    assert f"{name}.cu" in build.sources(name)
+    lib, loads = _FakeLibrary(), []
+    monkeypatch.setattr(build, "load", lambda n: loads.append(n) or lib)
+    monkeypatch.setattr(build, "_TYPED", {})
+    assert build.library(name, module.SIGNATURES) is lib
+    assert build.library(name, module.SIGNATURES) is lib and loads == [name]
+    for symbol, argtypes in module.SIGNATURES.items():
+        assert getattr(lib, symbol).argtypes == argtypes
+        assert getattr(lib, symbol).restype is ctypes.c_int
+    assert lib.rtt_error_string.argtypes == [ctypes.c_int]
+    assert lib.rtt_error_string.restype is ctypes.c_char_p
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=77))
+    entry = next(iter(module.SIGNATURES))
+    build.launch(lib, entry, "fake", "cuda:0", 1, 2)
+    assert getattr(lib, entry).calls == [(1, 2, 77)]
+    getattr(lib, entry).result = 700
+    with pytest.raises(RuntimeError, match="^fake kernel launch failed: an "
+                       "illegal memory access was encountered$"):
+        build.launch(lib, entry, "fake", "cuda:0", 3)
+    assert lib.rtt_error_string.calls == [(700,)]
 
 
 def test_image_io_matches_reference(tmp_path):
